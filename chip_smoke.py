@@ -1,0 +1,470 @@
+#!/usr/bin/env python
+"""Smoke run of the PyTorch port on one CUDA card (an H100 for this repo).
+
+    python3 chip_smoke.py              # the whole check; exits 0 only if all holds
+    python3 chip_smoke.py --profile    # also a torch.profiler breakdown of two steps
+
+Phases, each printed as one JSON line on stdout:
+
+1. toolchain: torch, CUDA, nvcc and Triton versions, the card's name and
+   power limit;
+2. build: nvcc builds the attention kernels from odam_torch/csrc;
+3. kernels: each kernel at every main-path shape and at edge cases, held to
+   its plain PyTorch version on the same inputs (f32 with TF32 off, and
+   bf16), with kernel, plain and library (SDPA, a yardstick only) times;
+4. modules: the full-width DETR on one 800x1071 frame and the full-width
+   associator on a filled 64x100 store, on the card (kernels) against the
+   same module and weights on the CPU (plain versions);
+5. slice: OdamPipeline at full width with seeded weights over 8 YUV 4:2:0
+   frames, with the kernel launch counts of every frame checked.
+
+Then the kernel table with the slice's launch counts, the card's name and
+power limit as nvidia-smi prints them, and as the last line
+{"ok": true, "device": {...}}.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+F32_ATOL = {"fused_attention": 2e-5, "flash_attention": 3e-5}   # the CPU tests' bars
+# bf16 keeps 8 significant bits: one rounding of an O(1) output is up to 2^-8
+# relative; kernel and plain may round the same f32 value to neighbours.
+BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
+DETR_ATOL = DETR_RTOL = 1e-3      # f32 card vs CPU, sums in another order
+ASSOC_ATOL = 5e-4                 # log_assignment, the CPU tests' bar
+ASSOC_MATCH_THRESHOLD = 0.01
+
+TPU_KERNEL = {"fused_attention": "odam_tpu/ops/pallas_attention.py:76",
+              "flash_attention": "odam_tpu/ops/pallas_attention.py:177"}
+SOURCE = "odam_torch/csrc/attention.cu"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def toolchain() -> dict:
+    from odam_torch.ops.cuda_attention import nvcc_path
+
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    return {"phase": "toolchain", "python": sys.version.split()[0], "torch": torch.__version__,
+            "cuda": torch.version.cuda, "nvcc": nvcc, "triton": triton_version,
+            "nvidia_smi": smi_line(), "device": torch.cuda.get_device_name(0)}
+
+
+def build() -> dict:
+    from odam_torch.ops import cuda_attention
+
+    cuda_attention.load_library()
+    info = cuda_attention.BUILD_INFO
+    ptxas = [ln.strip() for ln in info.get("ptxas", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    return {"phase": "build", "seconds": info["seconds"] if not info["cached"] else "cached",
+            "library": os.path.relpath(info["path"]), "ptxas": ptxas}
+
+
+# ------------------------------------------------------------------ kernels
+
+def _case(name, B, Lq, Lk, H, dh, dtype, masked_tail=0, all_masked_row=False, mask=True,
+          label=""):
+    return dict(name=name, B=B, Lq=Lq, Lk=Lk, H=H, dh=dh, dtype=dtype,
+                masked_tail=masked_tail, all_masked_row=all_masked_row, mask=mask, label=label)
+
+
+KERNEL_CASES = [
+    # main-path shapes (B = 1, 800x1071 frame, full width)
+    _case("flash_attention", 1, 850, 850, 8, 32, torch.float32, label="DETR encoder self"),
+    _case("flash_attention", 1, 100, 850, 8, 32, torch.float32, label="DETR decoder cross"),
+    _case("fused_attention", 1, 100, 100, 8, 32, torch.float32, mask=False,
+          label="DETR decoder self"),
+    _case("fused_attention", 1, 64, 64, 4, 64, torch.float32, masked_tail=20,
+          label="GNN track self"),
+    _case("fused_attention", 1, 30, 30, 4, 64, torch.float32, mask=False,
+          label="GNN detection self"),
+    _case("fused_attention", 1, 64, 30, 4, 64, torch.float32, mask=False,
+          label="GNN track<-detection cross"),
+    _case("fused_attention", 1, 30, 64, 4, 64, torch.float32, masked_tail=20,
+          label="GNN detection<-track cross"),
+    # edge cases
+    _case("flash_attention", 2, 37, 300, 2, 16, torch.float32, masked_tail=7,
+          label="ragged Lk, masked tail, B=2, dh=16"),
+    _case("flash_attention", 2, 100, 850, 8, 32, torch.float32, masked_tail=3,
+          all_masked_row=True, label="all-masked batch row"),
+    _case("flash_attention", 1, 64, 400, 4, 64, torch.float32, masked_tail=50,
+          label="long track window, dh=64"),
+    _case("fused_attention", 2, 100, 100, 4, 64, torch.float32, masked_tail=5,
+          all_masked_row=True, label="all-masked batch row"),
+    _case("fused_attention", 2, 144, 144, 4, 16, torch.float32, masked_tail=9,
+          label="committed-model tokens, dh=16, B=2"),
+    _case("fused_attention", 1, 65, 255, 2, 32, torch.float32, masked_tail=1,
+          label="largest fused Lk"),
+    # bf16
+    _case("flash_attention", 1, 850, 850, 8, 32, torch.bfloat16, label="DETR encoder self"),
+    _case("fused_attention", 1, 100, 100, 8, 32, torch.bfloat16, mask=False,
+          label="DETR decoder self"),
+    _case("fused_attention", 1, 64, 64, 4, 64, torch.bfloat16, masked_tail=20,
+          label="GNN track self"),
+]
+
+
+def kernel_checks(gen: torch.Generator) -> list[dict]:
+    from odam_torch.ops import cuda_attention as ca
+
+    rows = []
+    for c in KERNEL_CASES:
+        B, Lq, Lk, H, dh, dtype = c["B"], c["Lq"], c["Lk"], c["H"], c["dh"], c["dtype"]
+        q = torch.randn(B, Lq, H, dh, generator=gen).to("cuda", dtype)
+        k = torch.randn(B, Lk, H, dh, generator=gen).to("cuda", dtype)
+        v = torch.randn(B, Lk, H, dh, generator=gen).to("cuda", dtype)
+        kpm = None
+        if c["mask"]:
+            kpm = torch.zeros(B, Lk, dtype=torch.bool)
+            if c["masked_tail"]:
+                kpm[:, -c["masked_tail"]:] = True
+            if c["all_masked_row"]:
+                kpm[-1] = True
+            kpm = kpm.cuda()
+        wrapper = getattr(ca, c["name"])
+        out = wrapper(q, k, v, kpm)
+        ref = ca.attention_plain(q, k, v, kpm)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        max_err = float(err.max())
+        if dtype == torch.float32:
+            tol = F32_ATOL[c["name"]]
+            ok = max_err <= tol
+            tol_desc = {"atol": tol}
+        else:
+            ok = bool(torch.allclose(out.float(), ref.float(), atol=BF16_ATOL, rtol=BF16_RTOL))
+            tol_desc = {"atol": BF16_ATOL, "rtol": BF16_RTOL}
+        if c["all_masked_row"]:      # uniform average over the Lk keys
+            uniform = v[-1].float().mean(dim=0, keepdim=True).expand(Lq, H, dh)
+            ok = ok and float((out[-1].float() - uniform).abs().max()) <= 1e-4
+        if not ok:
+            raise AssertionError(f"{c['name']} {c['label']}: max|kernel-plain| {max_err:.3e} "
+                                 f"exceeds {tol_desc}")
+        ms = cuda_ms(lambda: wrapper(q, k, v, kpm))
+        plain_ms = cuda_ms(lambda: ca.attention_plain(q, k, v, kpm), reps=20)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        attn_mask = None if kpm is None else ~kpm[:, None, None, :]
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask))
+        esize = torch.finfo(dtype).bits // 8
+        n_bytes = esize * (2 * B * Lq * H * dh + 2 * B * Lk * H * dh) + (0 if kpm is None
+                                                                           else B * Lk)
+        flops = 4.0 * B * H * Lq * Lk * dh
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        rows.append({
+            "name": c["name"], "route": "cuda", "source": SOURCE,
+            "replaces": TPU_KERNEL[c["name"]], "case": c["label"],
+            "shape": {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "dh": dh,
+                      "masked_tail": c["masked_tail"], "all_masked_row": c["all_masked_row"]},
+            "dtype": str(dtype).replace("torch.", ""), "launches": None,
+            "max_abs_err": max_err, "tol": tol_desc, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+        })
+    return rows
+
+
+# ------------------------------------------------------------------ modules
+
+def _intrinsics(img_h: int, img_w: int) -> np.ndarray:
+    """ScanNet's 968x1296 color intrinsics scaled to the frame, as bench.py has them."""
+    return np.array([[1170.0 * img_w / 1296, 0, img_w / 2],
+                    [0, 1170.0 * img_h / 968, img_h / 2], [0, 0, 1]], np.float32)
+
+
+def _pose(f: int) -> np.ndarray:
+    T = np.eye(4, dtype=np.float32)
+    phi = 0.02 * f
+    T[:3, :3] = [[np.cos(phi), -np.sin(phi), 0], [np.sin(phi), np.cos(phi), 0], [0, 0, 1]]
+    T[:3, 3] = [0.05 * f, 0, 1.4]
+    return T
+
+
+def module_checks(rng) -> tuple[dict, object, object]:
+    from odam_torch.models import associator, detr
+    from odam_torch.ops import cuda_attention as ca
+
+    det_gpu = detr.build_detr(detr.DETRConfig(), seed=0)
+    det_cpu = detr.build_detr(detr.DETRConfig(), seed=0, device="cpu")
+    img = rng.normal(size=(1, 800, 1071, 3)).astype(np.float32)
+    img_gpu = torch.from_numpy(img).cuda()
+    with torch.no_grad():
+        ca.reset_counts()
+        out_gpu = det_gpu(img_gpu)
+        torch.cuda.synchronize()
+        detr_launches = dict(ca.LAUNCHES)
+        detr_ms = cuda_ms(lambda: det_gpu(img_gpu), reps=10, warmup=2)
+        out_cpu = det_cpu(torch.from_numpy(img))
+    detr_err = {}
+    for name in ("pred_logits", "pred_boxes", "pred_angle", "pred_offset", "pred_size",
+                 "pred_depth", "pred_obj_features"):
+        g, c = out_gpu[name].cpu(), out_cpu[name]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"DETR {name} not finite on the card")
+        if not torch.allclose(g, c, atol=DETR_ATOL, rtol=DETR_RTOL):
+            raise AssertionError(f"DETR {name}: card vs CPU max|diff| "
+                                 f"{float((g - c).abs().max()):.3e}")
+        detr_err[name] = float((g - c).abs().max())
+    if detr_launches != {"flash_attention": 12, "fused_attention": 6}:
+        raise AssertionError(f"DETR forward launches {detr_launches}")
+
+    as_gpu = associator.build_associator(associator.AssociatorConfig(), seed=1)
+    as_cpu = associator.build_associator(associator.AssociatorConfig(), seed=1, device="cpu")
+    T, W, N = 64, 100, 30
+    tracks = (rng.normal(size=(1, T, W, 79)) * 0.5).astype(np.float32)
+    tracks[..., 0] = np.arange(W)
+    dets = np.full((1, N, 79), -1.0, np.float32)
+    dets[0, :, 1:] = tracks[0, :N, -1, 1:] + rng.normal(size=(N, 78)).astype(np.float32) * 0.05
+    dets[0, :, 0] = W
+    tm = np.ones((1, T), bool)
+    tm[0, 48:] = False                 # 48 live tracks, 16 padded slots
+    dm = np.ones((1, N), bool)
+    dm[0, 26:] = False                 # 26 detections, 4 padded rows
+    # Seeded weights spread the Sinkhorn mass (every probability here is
+    # below 0.04), so at the pipeline's 0.1 no detection would match; at
+    # 0.01 the exact-match check covers all 26 detections.
+    args = [torch.from_numpy(a) for a in (tracks, tm, dets, dm)] + [ASSOC_MATCH_THRESHOLD]
+    args_gpu = [a.cuda() for a in args[:4]] + [ASSOC_MATCH_THRESHOLD]
+    with torch.no_grad():
+        ca.reset_counts()
+        o_gpu = as_gpu(*args_gpu)
+        torch.cuda.synchronize()
+        assoc_launches = dict(ca.LAUNCHES)
+        assoc_ms = cuda_ms(lambda: as_gpu(*args_gpu), reps=5, warmup=1)
+        o_cpu = as_cpu(*args)
+    Zg, Zc = o_gpu.log_assignment.cpu(), o_cpu.log_assignment
+    live = Zc > -1e8
+    z_err = float((Zg[live] - Zc[live]).abs().max())
+    if not torch.isfinite(Zg[live]).all() or z_err > ASSOC_ATOL:
+        raise AssertionError(f"associator log_assignment card vs CPU {z_err:.3e}")
+    n_matched = int((o_cpu.matches >= 0).sum())
+    if not torch.equal(o_gpu.matches.cpu(), o_cpu.matches) or n_matched == 0:
+        raise AssertionError(f"associator matches differ between card and CPU "
+                             f"({n_matched} matched on the CPU)")
+    if assoc_launches != {"flash_attention": 0, "fused_attention": 16}:
+        raise AssertionError(f"associator launches {assoc_launches}")
+    report = {"phase": "modules",
+              "detr": {"max_abs_err": detr_err, "tol": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
+                       "launches": detr_launches, "forward_ms": detr_ms},
+              "associator": {"log_assignment_max_abs_err": z_err, "tol": {"atol": ASSOC_ATOL},
+                             "matches_equal": True,
+                             "match_threshold": ASSOC_MATCH_THRESHOLD,
+                             "n_matched": n_matched,
+                             "launches": assoc_launches, "forward_ms": assoc_ms}}
+    return report, det_gpu, as_gpu
+
+
+# -------------------------------------------------------------------- slice
+
+def _populate_store(pipe, rng, occ: int = 48, hist: int = 60) -> None:
+    """Working occupancy, as bench.py sets it: ``occ`` plausible tracks with
+    ``hist``-observation histories, so the associator, Sinkhorn and the
+    decode run against a filled store and not the one track that seeded
+    weights (whose 100 queries collapse under NMS) would spawn."""
+    img_h, img_w = pipe.sequence["img_h"], pipe.sequence["img_w"]
+    cap, W = pipe.cfg.max_tracks, pipe.cfg.window
+    win = np.full((cap, W, 82), -1.0, np.float32)
+    for t in range(occ):
+        win[t, :hist, 0] = np.arange(hist)
+        win[t, :hist, 1] = t % 8
+        mx, my = img_w // 4, img_h // 4
+        cx, cy = rng.uniform(mx, img_w - mx), rng.uniform(my, img_h - my)
+        w2, h2 = rng.uniform(mx // 5 + 1, mx), rng.uniform(my // 5 + 1, my)
+        win[t, :hist, 2:6] = [cx - w2, cy - h2, cx + w2, cy + h2]
+        win[t, :hist, 6:9] = rng.uniform(0.3, 1.8, 3)
+        win[t, :hist, 9:12] = rng.uniform(-3, 3, 3) + [0, 0, 1.2]
+        win[t, :hist, 12] = rng.uniform(-3, 3)
+        win[t, :hist, 13] = 0.9
+        win[t, :hist, 78:82] = win[t, :hist, 2:6]
+    active = np.arange(cap) < occ
+    dev = lambda a, dt=None: torch.as_tensor(np.asarray(a, dt)).cuda()  # noqa: E731
+    pipe.sequence["store"] = pipe.sequence["store"]._replace(
+        window=dev(win),
+        length=dev(np.where(active, hist, 0), np.int32),
+        n_obs=dev(np.where(active, hist, 0), np.int32),
+        sum_t=dev(win[:, :hist, 9:12].sum(1) * active[:, None]),
+        sum_azi=dev(win[:, :hist, 12].sum(1) * active),
+        sum_dims=dev(win[:, :hist, 6:9].sum(1) * active[:, None]),
+        active=dev(active),
+        count=dev(occ, np.int32),
+        track_id=dev(np.where(active, np.arange(cap), -1), np.int32),
+        last_frame=dev(np.where(active, float(hist - 1), -1.0), np.float32),
+        next_id=dev(occ, np.int32),
+    )
+
+
+def slice_run(rng, det_gpu, as_gpu, n_frames: int = 8, profile: bool = False
+              ) -> tuple[dict, dict]:
+    from odam_torch.data.transforms import rgb_to_yuv420
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.runtime import processor
+
+    img_h, img_w = 800, 1071
+    pipe = processor.OdamPipeline(
+        det_gpu, as_gpu, processor.PipelineConfig(detect_threshold=0.0, score_threshold=0.0))
+    pipe.init_sequence(_intrinsics(img_h, img_w), img_h, img_w)
+    frames = [rgb_to_yuv420(rng.integers(0, 256, size=(img_h, img_w, 3), dtype=np.uint8))
+              for _ in range(4)]
+    per_frame = []
+    ca.reset_counts()
+    for f in range(n_frames):
+        if f == 2:       # after the init and the first associated step
+            _populate_store(pipe, rng)
+        before, syncs = dict(ca.LAUNCHES), pipe.host_syncs_total
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = pipe.process_frame(frames[f % 4], f, _pose(f))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: ca.LAUNCHES[k] - before[k] for k in ca.LAUNCHES}
+        expected = {"flash_attention": 12, "fused_attention": 6 if f == 0 else 22}
+        if launches != expected:
+            raise AssertionError(f"frame {f}: launches {launches}, expected {expected}")
+        per_frame.append({"frame": f, "ms": ms, "host_syncs": pipe.host_syncs_total - syncs,
+                          "n_detections": int(result.n_detections), "launches": launches})
+    slice_launches = dict(ca.LAUNCHES)
+    store = pipe.sequence["store"]
+    if not (torch.isfinite(store.window).all() and torch.isfinite(pipe.sequence["log"].rows).all()):
+        raise AssertionError("non-finite track store or log")
+    tracks = pipe.tracks
+    if not per_frame[0]["n_detections"] or not tracks:
+        raise AssertionError("the slice produced no detections or no tracks")
+    if not all(np.isfinite(t).all() for t in tracks):
+        raise AssertionError("non-finite track rows")
+    steady = sorted(p["ms"] for p in per_frame[2:])
+    report = {"phase": "slice", "frames": n_frames, "image": [img_h, img_w],
+              "transport": "yuv420", "per_frame": per_frame,
+              "step_ms_median_frames_2_on": steady[len(steady) // 2],
+              "n_tracks": len(tracks), "n_observations": int(sum(len(t) for t in tracks)),
+              "overflow_report": pipe.overflow_report(warn=False),
+              "launches": slice_launches}
+    if profile:
+        report["profile"] = profile_steps(pipe, frames, n_frames)
+    return report, slice_launches
+
+
+def profile_steps(pipe, frames, first: int, n: int = 2) -> dict:
+    """Device time by kernel over ``n`` associated steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(first, first + n):
+            pipe.process_frame(frames[f % 4], f, _pose(f))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    os.makedirs("chiprun_out", exist_ok=True)
+    prof.export_chrome_trace("chiprun_out/slice_trace.json")
+    averages = prof.key_averages()
+    on_device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: an aten op's host entry repeats its kernels' time, and the
+    # "odam.*" ranges appear on the device as spans (idle gaps included)
+    kernels = [e for e in on_device if not e.key.startswith("odam.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    attn_ms = sum(e.self_device_time_total for e in kernels if "attn_kernel" in e.key) / n / 1e3
+    stages = {}
+    for e in averages:
+        if e.key.startswith("odam."):
+            side = "device_span_ms" if e in on_device else "host_ms"
+            total = e.device_time_total if e in on_device else e.cpu_time_total
+            stages.setdefault(e.key, {})[side] = total / n / 1e3
+    attention = {re.search(r"\w+_attn_kernel<[^>]*>", e.key).group(0): {
+        "calls_per_step": e.count / n,
+        "device_ms_per_call": e.self_device_time_total / e.count / 1e3,
+    } for e in kernels if "attn_kernel" in e.key}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {"steps": n, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+            "attention_kernels_ms_per_step": attn_ms, "attention_kernels": attention,
+            "stages": stages,
+            "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
+                             "calls_per_step": e.count / n} for e in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace two steps with torch.profiler")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import odam_torch  # noqa: F401  (fails here when run outside the repo)
+
+    # f32 comparisons need full f32: cuDNN convolutions default to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    emit(toolchain())
+    emit(build())
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    kernel_rows = kernel_checks(gen)
+    emit({"phase": "kernel_checks", "cases": len(kernel_rows), "all_within_tolerance": True})
+    modules, det_gpu, as_gpu = module_checks(rng)
+    emit(modules)
+    slice_report, slice_launches = slice_run(rng, det_gpu, as_gpu, profile=args.profile)
+    emit(slice_report)
+    for name, n in slice_launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched on the main path")
+    for row in kernel_rows:
+        row["launches"] = slice_launches[row["name"]]
+    emit({"kernels": kernel_rows})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Multi-head attention core shared by the DETR transformer and the associator.
+
+Counterpart of ``odam_tpu/ops/attention.py`` with the same contract and the
+same routing: batch-first [B, L, D], heads split head-major [H, dh], a
+``key_padding_mask`` [B, Lk] bool with True = padded (logit -1e9).
+
+Calls with B <= ``KERNEL_MAX_BATCH`` go to the attention kernels of
+:mod:`odam_torch.ops.cuda_attention` (flash for Lk >= ``FLASH_MIN_KEYS``,
+fused below it); larger batches, such as the associator's history fuser at
+B = 64 tracks, take the plain path below.  On a CPU tensor the kernel
+wrappers run their plain versions, so the routing is the same on both.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cuda_attention
+
+NEG_INF = -1e9
+
+# Both thresholds were measured on a TPU for the JAX package
+# (odam_tpu/ops/attention.py:20-38).  They carry no weight on the card and
+# are kept only so that the same calls take the same kernels as in JAX.
+FLASH_MIN_KEYS = 256
+KERNEL_MAX_BATCH = 2
+
+
+def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+             key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled dot-product attention over heads.
+
+    Args:
+        q: [B, Lq, D]; k, v: [B, Lk, D] (already projected).
+        num_heads: H; D must be divisible by H.
+        key_padding_mask: optional [B, Lk] bool, True = padded (masked out).
+
+    Returns:
+        [B, Lq, D] attention output (before the out projection).
+    """
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    H = num_heads
+    dh = D // H
+    qh = q.reshape(B, Lq, H, dh)
+    kh = k.reshape(B, Lk, H, dh)
+    vh = v.reshape(B, Lk, H, dh)
+
+    if B <= KERNEL_MAX_BATCH:
+        if Lk >= FLASH_MIN_KEYS:
+            out = cuda_attention.flash_attention(qh, kh, vh, key_padding_mask)
+        else:
+            out = cuda_attention.fused_attention(qh, kh, vh, key_padding_mask)
+        return out.reshape(B, Lq, D)
+
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(dh)
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, Lq, D)

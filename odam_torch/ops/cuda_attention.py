@@ -1,0 +1,194 @@
+"""Hand-written CUDA attention kernels, their wrappers and plain versions.
+
+Counterpart of ``odam_tpu/ops/pallas_attention.py``.  The kernels live in
+``odam_torch/csrc/attention.cu`` (see its header for the design and what
+bounds them on the card):
+
+- :func:`fused_attention` replaces ``pallas_attention.fused_attention``
+  (``_attn_kernel``): all keys of a (batch, head) slice in shared memory at
+  once, two-pass softmax.  Takes Lk < 256.
+- :func:`flash_attention` replaces ``pallas_attention.flash_attention``
+  (``_flash_kernel``): K/V stream through shared memory in 64-key tiles with
+  an online softmax.  Any Lk >= 1; the ragged key edge is masked in the
+  kernel, Lk is never padded.
+
+Layout at this boundary is the JAX package's: q [B, Lq, H, dh], k and v
+[B, Lk, H, dh], key_padding_mask [B, Lk] bool with True = padded key.
+Softmax and accumulation run in f32 and the output has the input dtype
+(float32 or bfloat16); dh is 16, 32 or 64.
+
+On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
+``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
+``LAUNCHES``, or raises.  There is no fallback from one to the other.
+
+The library is built at first use with ``nvcc`` (``-gencode
+arch=compute_90a,code=sm_90a``) into ``odam_torch/_build/``, keyed by a hash
+of the sources, and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+NEG_INF = -1e9
+FUSED_MAX_KEYS = 256          # the fused kernel holds every key: Lk < 256
+KERNEL_HEAD_DIMS = (16, 32, 64)
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "attention.cu",)
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launch counts of the CUDA kernels, and calls of the plain versions that a
+# wrapper made for CPU tensors (the same routing, observable in CPU tests).
+LAUNCHES = {"fused_attention": 0, "flash_attention": 0}
+PLAIN_CALLS = {"fused_attention": 0, "flash_attention": 0}
+
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for name in counts:
+            counts[name] = 0
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of both kernels: the same function, in f32.
+
+    A padded key gets the logit -1e9, so an all-padded query row averages V
+    uniformly over the Lk keys.
+    """
+    dh = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh ** -0.5
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v.float()).to(q.dtype)
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA attention kernels are built on "
+                       "first use and need the CUDA toolkit")
+
+
+def build_library() -> Path:
+    """Compile the kernels into a shared library (cached by source hash)."""
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libodam_attention_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        BUILD_INFO.update(path=str(out), seconds=None, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                      ptxas=proc.stderr)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+        for name in ("odam_fused_attention", "odam_flash_attention"):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v, key_padding_mask) -> None:
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"expected q [B,Lq,H,dh], k/v [B,Lk,H,dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on B, H or dh")
+    if k.shape[1] < 1:
+        raise ValueError("attention needs at least one key")
+    if key_padding_mask is not None and (key_padding_mask.dtype != torch.bool or
+                                         key_padding_mask.shape != k.shape[:2]):
+        raise ValueError("key_padding_mask must be bool [B, Lk]")
+
+
+def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {q.device} have no kernel")
+    B, Lq, H, dh = q.shape
+    Lk = k.shape[1]
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} not in {KERNEL_HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: float32 or bfloat16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v on different devices")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    if max(x.numel() for x in (q, k, v)) >= 2 ** 31:
+        raise ValueError(f"{name}: tensors too large for 32-bit strides")
+    mask = None
+    if key_padding_mask is not None:
+        mask = key_padding_mask.to(q.device).contiguous()
+    out = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, f"odam_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            0 if q.dtype == torch.float32 else 1, B, H, Lq, Lk, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            0 if mask is None else mask.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-tile softmax attention (Lk < 256): [B, Lq, H, dh] -> [B, Lq, H, dh]."""
+    _check(q, k, v, key_padding_mask)
+    if q.device.type == "cpu":
+        PLAIN_CALLS["fused_attention"] += 1
+        return attention_plain(q, k, v, key_padding_mask)
+    if k.shape[1] >= FUSED_MAX_KEYS:
+        raise ValueError(f"fused_attention holds Lk < {FUSED_MAX_KEYS} keys, got {k.shape[1]}")
+    return _launch("fused_attention", q, k, v, key_padding_mask)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Streaming (online-softmax) attention: [B, Lq, H, dh] -> [B, Lq, H, dh]."""
+    _check(q, k, v, key_padding_mask)
+    if q.device.type == "cpu":
+        PLAIN_CALLS["flash_attention"] += 1
+        return attention_plain(q, k, v, key_padding_mask)
+    return _launch("flash_attention", q, k, v, key_padding_mask)

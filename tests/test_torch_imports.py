@@ -1,0 +1,82 @@
+"""odam_torch stands alone: it loads neither JAX nor odam_tpu, and its entry
+points run on the card unless asked for the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PKG = os.path.join(ROOT, "odam_torch")
+
+
+def _modules():
+    import odam_torch
+
+    names = ["odam_torch"]
+    for info in pkgutil.walk_packages(odam_torch.__path__, "odam_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_without_jax_or_odam_tpu():
+    mods = _modules()
+    assert len(mods) >= 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'odam_tpu'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_file_imports_jax_flax_or_odam_tpu():
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "odam_tpu")
+    found = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            tree = ast.parse(open(path).read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                found += [(path, n) for n in names if n.split(".")[0] in banned]
+    assert not found, found
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from odam_torch import resolve_device
+    from odam_torch.models import associator, detr
+    from odam_torch.runtime import processor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small_detr = detr.DETRConfig(num_queries=4, hidden_dim=16, nheads=2, enc_layers=1,
+                                 dec_layers=1, dim_feedforward=16, backbone="tiny",
+                                 backbone_stage=2)
+    small_assoc = associator.AssociatorConfig(descriptor_dim=16, keypoint_encoder=(78, 16),
+                                              gnn_layers=("self",), self_gnn_layers=("self",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        detr.build_detr(small_detr)
+    with pytest.raises(RuntimeError):
+        associator.build_associator(small_assoc)
+    d = detr.build_detr(small_detr, device="cpu")
+    a = associator.build_associator(small_assoc, device="cpu")
+    with pytest.raises(RuntimeError):
+        processor.OdamPipeline(d, a)
+    assert processor.OdamPipeline(d, a, device="cpu").device.type == "cpu"
+    assert resolve_device("cpu") == torch.device("cpu")
