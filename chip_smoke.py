@@ -8,10 +8,14 @@ Phases, each printed as one JSON line on stdout:
 
 1. toolchain: torch, CUDA, nvcc and Triton versions, the card's name and
    power limit;
-2. build: nvcc builds the attention kernels from odam_torch/csrc;
+2. build: nvcc builds the attention kernels from odam_torch/csrc; ptxas'
+   registers and spills, and the HMMA (tensor-core) instructions of each
+   kernel in cuobjdump's SASS (it fails if a kernel has none);
 3. kernels: each kernel at every main-path shape and at edge cases, held to
    its plain PyTorch version on the same inputs (f32 with TF32 off, and
-   bf16), with kernel, plain and library (SDPA, a yardstick only) times;
+   bf16), with kernel, plain and library (SDPA, a yardstick only) times:
+   device time per call from a CUDA graph of 20 calls, replayed, and the
+   back-to-back issue time of the same calls;
 4. modules: the full-width DETR on one 800x1071 frame and the full-width
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
@@ -28,6 +32,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -36,13 +41,20 @@ import numpy as np
 import torch
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet, dense).
+# The kernels run f32 as 3xTF32 on the tensor cores: three TF32 products for
+# each f32 one, so their f32 bound is 3 x FLOP over the 495 TFLOP/s TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+BOUND_RATE = {torch.float32: "3 x FLOP over 495 TFLOP/s TF32 (3xTF32), or bytes over 3.35 TB/s",
+              torch.bfloat16: "FLOP over 989 TFLOP/s bf16, or bytes over 3.35 TB/s"}
+GRAPH_CALLS = 20                  # calls captured in one CUDA graph for device times
 
 F32_ATOL = {"fused_attention": 2e-5, "flash_attention": 3e-5}   # the CPU tests' bars
 # bf16 keeps 8 significant bits: one rounding of an O(1) output is up to 2^-8
 # relative; kernel and plain may round the same f32 value to neighbours.
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
+# an all-masked row against the uniform average: a bf16 output rounds it
+ALL_MASKED_ATOL = {torch.float32: 1e-4, torch.bfloat16: BF16_ATOL}
 DETR_ATOL = DETR_RTOL = 1e-3      # f32 card vs CPU, sums in another order
 ASSOC_ATOL = 5e-4                 # log_assignment, the CPU tests' bar
 ASSOC_MATCH_THRESHOLD = 0.01
@@ -60,6 +72,30 @@ def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = 10) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    replayed, so the host's issue rate is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -90,6 +126,39 @@ def toolchain() -> dict:
             "nvidia_smi": smi_line(), "device": torch.cuda.get_device_name(0)}
 
 
+def cuobjdump_path() -> str:
+    from odam_torch.ops.cuda_attention import nvcc_path
+
+    cands = [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found: the toolkit's or Triton's is needed for the SASS")
+
+
+def hmma_counts(library: str) -> dict:
+    """HMMA instructions per kernel instantiation in the library's SASS."""
+    sass = subprocess.run([cuobjdump_path(), "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            sym = re.search(r"(flash|fused)_attn_kernelI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+            current = (f"{sym.group(1)}_attn_kernel<{'float' if sym.group(2) == 'f' else 'bf16'}, "
+                       f"{sym.group(3)}>") if sym else m.group(1)
+            counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
 def build() -> dict:
     from odam_torch.ops import cuda_attention
 
@@ -97,8 +166,13 @@ def build() -> dict:
     info = cuda_attention.BUILD_INFO
     ptxas = [ln.strip() for ln in info.get("ptxas", "").splitlines()
              if "registers" in ln or "spill" in ln]
+    hmma = hmma_counts(info["path"])
+    for kernel in ("flash_attn_kernel", "fused_attn_kernel"):
+        found = {sym: n for sym, n in hmma.items() if kernel in sym}
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"{kernel}: no HMMA instruction in its SASS ({found})")
     return {"phase": "build", "seconds": info["seconds"] if not info["cached"] else "cached",
-            "library": os.path.relpath(info["path"]), "ptxas": ptxas}
+            "library": os.path.relpath(info["path"]), "ptxas": ptxas, "hmma": hmma}
 
 
 # ------------------------------------------------------------------ kernels
@@ -136,12 +210,33 @@ KERNEL_CASES = [
           label="committed-model tokens, dh=16, B=2"),
     _case("fused_attention", 1, 65, 255, 2, 32, torch.float32, masked_tail=1,
           label="largest fused Lk"),
+    # edge cases of the split-key design: Lq not a multiple of 16, warps of
+    # a block with no tile, masked tails that cover whole warps' shares
+    _case("flash_attention", 1, 1, 850, 8, 32, torch.float32, masked_tail=3, label="Lq 1"),
+    _case("fused_attention", 1, 1, 100, 4, 64, torch.float32, masked_tail=3, label="Lq 1"),
+    _case("fused_attention", 2, 37, 77, 2, 32, torch.float32, masked_tail=5, label="Lq 37"),
+    _case("flash_attention", 1, 37, 1, 2, 32, torch.float32, mask=False,
+          label="Lk 1: seven warps without a tile"),
+    _case("flash_attention", 1, 37, 64, 2, 32, torch.float32,
+          label="Lk 64: four warps without a tile"),
+    _case("flash_attention", 2, 37, 65, 2, 64, torch.float32, masked_tail=1,
+          label="Lk 65: a tile of one padded key"),
+    _case("flash_attention", 1, 50, 257, 4, 32, torch.float32, masked_tail=2,
+          label="Lk 257: a ragged tile of one key"),
+    _case("flash_attention", 1, 50, 128, 4, 32, torch.float32, masked_tail=40,
+          label="masked tail covers warps 6 and 7"),
+    _case("fused_attention", 1, 50, 100, 4, 32, torch.float32, masked_tail=40,
+          label="masked tail covers warps 4 to 6"),
     # bf16
     _case("flash_attention", 1, 850, 850, 8, 32, torch.bfloat16, label="DETR encoder self"),
     _case("fused_attention", 1, 100, 100, 8, 32, torch.bfloat16, mask=False,
           label="DETR decoder self"),
     _case("fused_attention", 1, 64, 64, 4, 64, torch.bfloat16, masked_tail=20,
           label="GNN track self"),
+    _case("fused_attention", 1, 65, 255, 4, 64, torch.bfloat16, masked_tail=1,
+          label="largest fused Lk, dh=64"),
+    _case("flash_attention", 2, 37, 257, 2, 16, torch.bfloat16, masked_tail=7,
+          all_masked_row=True, label="ragged Lk, all-masked batch row, dh=16"),
 ]
 
 
@@ -177,16 +272,20 @@ def kernel_checks(gen: torch.Generator) -> list[dict]:
             tol_desc = {"atol": BF16_ATOL, "rtol": BF16_RTOL}
         if c["all_masked_row"]:      # uniform average over the Lk keys
             uniform = v[-1].float().mean(dim=0, keepdim=True).expand(Lq, H, dh)
-            ok = ok and float((out[-1].float() - uniform).abs().max()) <= 1e-4
+            ok = ok and float((out[-1].float() - uniform).abs().max()) <= ALL_MASKED_ATOL[dtype]
         if not ok:
             raise AssertionError(f"{c['name']} {c['label']}: max|kernel-plain| {max_err:.3e} "
                                  f"exceeds {tol_desc}")
-        ms = cuda_ms(lambda: wrapper(q, k, v, kpm))
-        plain_ms = cuda_ms(lambda: ca.attention_plain(q, k, v, kpm), reps=20)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         attn_mask = None if kpm is None else ~kpm[:, None, None, :]
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask))
+        calls = {"": lambda: wrapper(q, k, v, kpm),
+                 "plain_": lambda: ca.attention_plain(q, k, v, kpm),
+                 "library_": lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=attn_mask)}
+        times = {}
+        for key, fn in calls.items():
+            times[f"{key}issue_ms"] = cuda_ms(fn)
+            times[f"{key}device_ms"] = graph_ms(fn)
         esize = torch.finfo(dtype).bits // 8
         n_bytes = esize * (2 * B * Lq * H * dh + 2 * B * Lk * H * dh) + (0 if kpm is None
                                                                            else B * Lk)
@@ -199,10 +298,12 @@ def kernel_checks(gen: torch.Generator) -> list[dict]:
             "shape": {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "dh": dh,
                       "masked_tail": c["masked_tail"], "all_masked_row": c["all_masked_row"]},
             "dtype": str(dtype).replace("torch.", ""), "launches": None,
-            "max_abs_err": max_err, "tol": tol_desc, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": max_err, "tol": tol_desc, "ms": times["device_ms"],
+            "plain_ms": times["plain_device_ms"], "library_ms": times["library_device_ms"],
+            **times,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_rate": BOUND_RATE[dtype],
             "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
         })
     return rows
@@ -367,6 +468,9 @@ def slice_run(rng, det_gpu, as_gpu, n_frames: int = 8, profile: bool = False
         per_frame.append({"frame": f, "ms": ms, "host_syncs": pipe.host_syncs_total - syncs,
                           "n_detections": int(result.n_detections), "launches": launches})
     slice_launches = dict(ca.LAUNCHES)
+    if any(ca.ALIGN_COPIES.values()):
+        raise AssertionError(f"the slice's attention inputs needed aligned copies: "
+                             f"{ca.ALIGN_COPIES}")
     store = pipe.sequence["store"]
     if not (torch.isfinite(store.window).all() and torch.isfinite(pipe.sequence["log"].rows).all()):
         raise AssertionError("non-finite track store or log")
@@ -381,7 +485,7 @@ def slice_run(rng, det_gpu, as_gpu, n_frames: int = 8, profile: bool = False
               "step_ms_median_frames_2_on": steady[len(steady) // 2],
               "n_tracks": len(tracks), "n_observations": int(sum(len(t) for t in tracks)),
               "overflow_report": pipe.overflow_report(warn=False),
-              "launches": slice_launches}
+              "launches": slice_launches, "align_copies": dict(ca.ALIGN_COPIES)}
     if profile:
         report["profile"] = profile_steps(pipe, frames, n_frames)
     return report, slice_launches

@@ -2,13 +2,15 @@
 
 Counterpart of ``odam_tpu/ops/pallas_attention.py``.  The kernels live in
 ``odam_torch/csrc/attention.cu`` (see its header for the design and what
-bounds them on the card):
+bounds them on the card).  Both run Q.K^T and P.V on the tensor cores
+(3xTF32 in f32, bf16 with f32 accumulation), a block being one 16-row query
+tile whose eight warps split the keys and merge their softmax states:
 
 - :func:`fused_attention` replaces ``pallas_attention.fused_attention``
   (``_attn_kernel``): all keys of a (batch, head) slice in shared memory at
-  once, two-pass softmax.  Takes Lk < 256.
+  once, a one-pass softmax with the logits in registers.  Takes Lk < 256.
 - :func:`flash_attention` replaces ``pallas_attention.flash_attention``
-  (``_flash_kernel``): K/V stream through shared memory in 64-key tiles with
+  (``_flash_kernel``): K/V stream through shared memory in 16-key tiles with
   an online softmax.  Any Lk >= 1; the ragged key edge is masked in the
   kernel, Lk is never padded.
 
@@ -19,7 +21,10 @@ Softmax and accumulation run in f32 and the output has the input dtype
 
 On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
 ``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
-``LAUNCHES``, or raises.  There is no fallback from one to the other.
+``LAUNCHES``, or raises.  There is no fallback from one to the other.  The
+kernels stage K/V with 16-byte ``cp.async`` copies: a q, k or v whose pointer
+or strides are not 16-byte aligned is copied first, and the copy is counted
+in ``ALIGN_COPIES``.
 
 The library is built at first use with ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``odam_torch/_build/``, keyed by a hash
@@ -52,13 +57,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # wrapper made for CPU tensors (the same routing, observable in CPU tests).
 LAUNCHES = {"fused_attention": 0, "flash_attention": 0}
 PLAIN_CALLS = {"fused_attention": 0, "flash_attention": 0}
+# Copies a wrapper made of a q, k or v that cp.async could not read as it was.
+ALIGN_COPIES = {"fused_attention": 0, "flash_attention": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, ALIGN_COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -138,6 +145,12 @@ def _check(q, k, v, key_padding_mask) -> None:
         raise ValueError("key_padding_mask must be bool [B, Lk]")
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """Pointer and the strides of the first three dims 16-byte aligned."""
+    sb, sl, sh, sd = x.stride()
+    return sd == 1 and (x.data_ptr() | (sb | sl | sh) * x.element_size()) % 16 == 0
+
+
 def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {q.device} have no kernel")
@@ -150,22 +163,32 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v on different devices")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    if B * H > 65535:
+        raise ValueError(f"{name}: B * H = {B * H} exceeds the grid's 65535")
+    qkv = []
+    for x in (q, k, v):
+        if not _aligned(x):
+            x = x.clone(memory_format=torch.contiguous_format)
+            ALIGN_COPIES[name] += 1
+        qkv.append(x)
+    q, k, v = qkv
     if max(x.numel() for x in (q, k, v)) >= 2 ** 31:
         raise ValueError(f"{name}: tensors too large for 32-bit strides")
     mask = None
     if key_padding_mask is not None:
         mask = key_padding_mask.to(q.device).contiguous()
     out = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"odam_{name}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    fn = getattr(load_library(), f"odam_{name}")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             0 if q.dtype == torch.float32 else 1, B, H, Lq, Lk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            0 if mask is None else mask.stride(0), stream)
+            0 if mask is None else mask.stride(0))
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
