@@ -20,11 +20,27 @@ Phases, each printed as one JSON line on stdout:
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
 5. slice: OdamPipeline at full width with seeded weights over 8 YUV 4:2:0
-   frames, with the kernel launch counts of every frame checked.
+   frames, with the kernel launch counts of every frame checked;
+6. mapping: optim_process -> merge_process -> optim_process at the default
+   PipelineConfig (64 objects x 256 views x 1000 samples x 200 iterations)
+   on a synthetic scene of 64 ground-truth boxes and 256 cameras at
+   800x1071: the loss falls more than 10x, the mean IoU with the ground
+   truth is above 0.7, the first 5 iterations agree with the CPU within
+   rtol 1e-4; the time of each stage and a profile of the solve's
+   iterations;
+7. scene: ``python -m odam_torch.scripts.run_processor`` then
+   ``eval_scan2cad`` on the three committed hard-split scenes with the
+   committed weights (artifacts/torch/*.npz), on the card and on the CPU:
+   the same tracks, boxes and F1 table, and the kernel launches of every
+   frame checked;
+8. cli_full: ``run_processor`` at full width (configs/detr_scan_net.yaml,
+   seeded weights) on 4 frames of one committed scene resized to 800x800,
+   with the kernel launches of every frame checked, flash included.
 
-Then the kernel table with the slice's launch counts, the card's name and
-power limit as nvidia-smi prints them, and as the last line
-{"ok": true, "device": {...}}.  It imports nothing of JAX.
+Then the kernel table with the launch counts of the slice, scene and
+cli_full paths, the card's name and power limit as nvidia-smi prints them,
+and as the last line {"ok": true, "device": {...}}.  It imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -197,6 +213,26 @@ KERNEL_CASES = [
           label="GNN track<-detection cross"),
     _case("fused_attention", 1, 30, 64, 4, 64, torch.float32, masked_tail=20,
           label="GNN detection<-track cross"),
+    # the scene path: the committed rehearsal model (hidden 64 over 4 heads,
+    # 16 queries) on 192x192 frames (144 image tokens, below FLASH_MIN_KEYS),
+    # and its GNN over 64 track slots (5 to 21 of them live) and 30
+    # detection slots
+    _case("fused_attention", 1, 144, 144, 4, 16, torch.float32, label="scene: encoder self"),
+    _case("fused_attention", 1, 16, 144, 4, 16, torch.float32, label="scene: decoder cross"),
+    _case("fused_attention", 1, 16, 16, 4, 16, torch.float32, mask=False,
+          label="scene: decoder self"),
+    _case("fused_attention", 1, 64, 64, 4, 16, torch.float32, masked_tail=45,
+          label="scene: GNN track self"),
+    _case("fused_attention", 1, 30, 30, 4, 16, torch.float32, mask=False,
+          label="scene: GNN detection self"),
+    _case("fused_attention", 1, 64, 30, 4, 16, torch.float32, mask=False,
+          label="scene: GNN track<-detection cross"),
+    _case("fused_attention", 1, 30, 64, 4, 16, torch.float32, masked_tail=59,
+          label="scene: GNN detection<-track cross"),
+    # the full-width CLI run: 192x192 frames resized to 800x800 (625 tokens)
+    _case("flash_attention", 1, 625, 625, 8, 32, torch.float32, label="cli_full: encoder self"),
+    _case("flash_attention", 1, 100, 625, 8, 32, torch.float32,
+          label="cli_full: decoder cross"),
     # edge cases
     _case("flash_attention", 2, 37, 300, 2, 16, torch.float32, masked_tail=7,
           label="ragged Lk, masked tail, B=2, dh=16"),
@@ -531,6 +567,397 @@ def profile_steps(pipe, frames, first: int, n: int = 2) -> dict:
                              "calls_per_step": e.count / n} for e in top]}
 
 
+# ------------------------------------------------------------------ mapping
+
+MAP_OBJECTS, MAP_VIEWS = 64, 256
+MAP_LOSS_DROP = 10.0               # the JAX drive recipe's health bars
+MAP_MEAN_IOU = 0.7
+MAP_CPU_ITERS, MAP_CPU_RTOL = 5, 1e-4
+
+
+def _look_at(cam: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """T_wc of a z-up world camera at ``cam`` whose optical axis meets ``target``."""
+    fwd = (target - cam) / np.linalg.norm(target - cam)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    T_wc = np.eye(4)
+    T_wc[:3, 0], T_wc[:3, 1], T_wc[:3, 2], T_wc[:3, 3] = right, np.cross(fwd, right), fwd, cam
+    return T_wc
+
+
+def _box_corners(dims, yaw, center) -> np.ndarray:
+    signs = np.array([[1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1],
+                      [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1]], np.float64)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    return (signs * np.asarray(dims) / 2) @ R.T + center
+
+
+def synthetic_scene(rng, n_objs: int, n_views: int, img_h: int, img_w: int):
+    """Ground-truth boxes on a grid over the 8 Scan2CAD classes, seen by a
+    ring of look-at cameras; every view in which an object lies in front of
+    the camera and inside the image gives one 82-column track row: the
+    projected box clipped to the image with 1.5 px of detector noise, and
+    the detector's 3D estimate, biased per object (centre sigma 15 cm, dims
+    x0.8-1.2, yaw sigma 0.1 rad: a monocular detector's depth and size
+    errors do not average out over views) and noisy per view (8 cm,
+    x0.9-1.1, 0.05 rad).  Column 14 (a feature-code column, which the
+    mapping does not read) holds the object's index.  Returns (tracks,
+    frame ids, T_wcs, K, gt)."""
+    side = int(np.ceil(np.sqrt(n_objs)))
+    K = _intrinsics(img_h, img_w).astype(np.float64)
+    gt = []
+    for o in range(n_objs):
+        dims = rng.uniform([0.3, 0.3, 0.4], [0.8, 0.8, 1.3])
+        center = np.array([(o % side - (side - 1) / 2) * 1.1, (o // side - (side - 1) / 2) * 1.1,
+                           dims[2] / 2]) + np.r_[rng.uniform(-0.1, 0.1, 2), 0.0]
+        gt.append((dims, rng.uniform(-np.pi, np.pi), center, o % 8))
+    bias = [(rng.normal(0, 0.2, 3), rng.uniform(0.75, 1.25, 3), rng.normal(0, 0.15))
+            for _ in range(n_objs)]
+    radius = 0.7 * side
+    T_wcs, tracks = [], [[] for _ in range(n_objs)]
+    for f in range(n_views):
+        phi = 2 * np.pi * f / n_views
+        T_wc = _look_at(np.array([radius * np.cos(phi), radius * np.sin(phi), 1.6]),
+                        np.array([0.0, 0.0, 0.4]))
+        T_wcs.append(T_wc.astype(np.float32))
+        P = K @ np.linalg.inv(T_wc)[:3, :]
+        for o, (dims, yaw, center, cls) in enumerate(gt):
+            pix = np.c_[_box_corners(dims, yaw, center), np.ones(8)] @ P.T
+            if (pix[:, 2] < 0.5).any():
+                continue
+            uv = pix[:, :2] / pix[:, 2:]
+            box = np.array([uv[:, 0].min(), uv[:, 1].min(), uv[:, 0].max(), uv[:, 1].max()])
+            box = np.clip(box + rng.normal(0, 1.5, 4), 0, [img_w, img_h, img_w, img_h])
+            if box[2] - box[0] < 4 or box[3] - box[1] < 4:
+                continue
+            row = np.full(82, -1.0, np.float32)
+            row[0], row[1], row[13], row[14] = f, cls, 0.9, o
+            row[2:6] = row[78:82] = box
+            d_center, d_scale, d_yaw = bias[o]
+            row[6:9] = dims * d_scale * rng.uniform(0.9, 1.1, 3)
+            row[9:12] = center + d_center + rng.normal(0, 0.08, 3)
+            row[12] = yaw + d_yaw + rng.normal(0, 0.05)
+            tracks[o].append(row)
+    return [np.asarray(t) for t in tracks], list(range(n_views)), T_wcs, K.astype(np.float32), gt
+
+
+def _mapping_pipeline(det, assoc, cfg, device, frame_ids, T_wcs, K, img_h, img_w):
+    """An OdamPipeline whose sequence holds the poses as ``process_frame``
+    records them (usable frame ids, T_wc, P_cw), with no frame run."""
+    from odam_torch.runtime import processor
+
+    pipe = processor.OdamPipeline(det, assoc, cfg, device=device)
+    pipe.init_sequence(K, img_h, img_w)
+    seq = pipe.sequence
+    for f, T_wc in zip(frame_ids, T_wcs):
+        seq["usable_frames"].append(int(f))
+        seq["T_wcs"].append(T_wc)
+        seq["P_cws"].append(K[:3, :3] @ np.linalg.inv(T_wc)[:3, :])
+    return pipe
+
+
+def _iou_to_gt(out: dict, gt: list) -> list[float]:
+    from odam_torch.utils.host_boxes import robust_box3d_iou
+
+    return [robust_box3d_iou(box, _box_corners(*gt[int(track[0, 14])][:3]))
+            for track, box in zip(out["tracks"], out["bboxes_qc"])]
+
+
+def _first_iterations_on(device, sc, cfg, n_iters: int) -> np.ndarray:
+    from odam_torch.mapping import optimizer, prior
+    from odam_torch.mapping import superquadric as sq
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    init = sq.init_params(on(sc.init_translate), on(sc.init_angle), on(sc.init_dims),
+                          cfg.representation)
+    res = optimizer.optimize_superquadrics(
+        init, on(sc.boxes), on(sc.box_mask), on(sc.view_mask), on(sc.P_cw),
+        on(sc.optimize_mask), on(prior.prior_invcov_for_classes(sc.obj_class)),
+        n_iters=n_iters, n_samples=cfg.optim_samples, representation=cfg.representation,
+        use_prior=cfg.use_prior)
+    return res.loss_log.cpu().numpy()
+
+
+def solve_profile(pipe, sc, n_iters: int = 10) -> dict:
+    """Wall time, device busy time and kernel launches per solve iteration
+    (torch.profiler over ``n_iters`` iterations at the scene's shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _first_iterations_on("cuda", sc, pipe.cfg, 2)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _first_iterations_on("cuda", sc, pipe.cfg, n_iters)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"iterations": n_iters, "wall_ms_per_iteration": wall_ms / n_iters,
+            "device_busy_ms_per_iteration": busy_ms / n_iters,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_launches_per_iteration": sum(e.count for e in kernels) / n_iters,
+            "top_kernels": [{"name": e.key[:80], "ms_per_iteration":
+                             e.self_device_time_total / n_iters / 1e3} for e in top],
+            "note": "includes the sampler set-up and the oriented-box sweep once"}
+
+
+def mapping_run(rng, det, assoc, device: str = "cuda", n_objs: int = MAP_OBJECTS,
+                n_views: int = MAP_VIEWS, img_h: int = 800, img_w: int = 1071,
+                cpu_iters: int = MAP_CPU_ITERS, **cfg_kw) -> dict:
+    """optim_process -> merge_process -> optim_process on the synthetic scene
+    at the default PipelineConfig (64 objects x 256 views x 1000 samples x
+    200 iterations), with the health bars checked, and the first iterations
+    of the same solve on the CPU against the card."""
+    from odam_torch.mapping import constraints
+    from odam_torch.runtime import processor
+
+    cfg = processor.PipelineConfig(**cfg_kw)
+    tracks, frame_ids, T_wcs, K, gt = synthetic_scene(rng, n_objs, n_views, img_h, img_w)
+    pipe = _mapping_pipeline(det, assoc, cfg, device, frame_ids, T_wcs, K, img_h, img_w)
+    seq = pipe.sequence
+    stages = {}
+
+    def timed(name, fn, *args):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    sc = timed("constraints_ms", constraints.build_scene_constraints, tracks,
+               np.asarray(seq["usable_frames"]), np.asarray(seq["P_cws"]), seq["img_h"],
+               seq["img_w"], cfg.max_objs, cfg.max_views, cfg.min_views)
+    first = timed("optim_process_1_ms", pipe.optim_process, tracks)
+    merged = timed("merge_process_ms", pipe.merge_process, first)
+    second = timed("optim_process_2_ms", pipe.optim_process, merged)
+
+    loss = first["loss_log"]
+    drop = float(loss[0] / loss[-1])
+    finite = all(np.isfinite(x).all() for out in (first, second)
+                 for x in (*out["bboxes_qc"], *out["bboxes_dl"], out["loss_log"],
+                           *(leaf for q in out["quadrics"] for leaf in q)))
+    ious = _iou_to_gt(second, gt)
+    if not finite:
+        raise AssertionError("non-finite mapping output")
+    if drop <= MAP_LOSS_DROP:
+        raise AssertionError(f"the solve's loss fell {drop:.2f}x, not more than {MAP_LOSS_DROP}x")
+    if len(merged) != n_objs or float(np.mean(ious)) <= MAP_MEAN_IOU:
+        raise AssertionError(f"{len(merged)} tracks after the merge (of {n_objs} objects), "
+                             f"mean IoU with the ground truth {np.mean(ious):.3f}")
+    card = _first_iterations_on(device, sc, cfg, cpu_iters)
+    cpu = _first_iterations_on("cpu", sc, cfg, cpu_iters)
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    if not (rel <= MAP_CPU_RTOL).all():
+        raise AssertionError(f"first {cpu_iters} solve iterations, card vs CPU rel {rel}")
+    report = {"phase": "mapping", "objects": n_objs, "views": n_views,
+              "n_observations": int(sum(len(t) for t in tracks)),
+              "shape": {"O": cfg.max_objs, "V": cfg.max_views, "S": cfg.optim_samples,
+                        "iterations": cfg.optim_iters},
+              **stages, "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+              "loss_drop": drop, "tracks_after_merge": len(merged),
+              "mean_iou_to_gt": float(np.mean(ious)), "min_iou_to_gt": float(np.min(ious)),
+              "card_vs_cpu_first_iterations": {"iterations": cpu_iters, "max_rel": float(rel.max()),
+                                               "rtol": MAP_CPU_RTOL}}
+    if device == "cuda":
+        report["solve_profile"] = solve_profile(pipe, sc)
+    return report
+
+
+# -------------------------------------------------------------------- scene
+
+SCENE_DATA = os.path.join("examples", "cli_rehearsal", "data_hard")
+SCENE_QC_IOU = 0.95      # card vs CPU per object (the solve's own spread; see below)
+SCENE_ROW_ATOL = 1e-3    # card vs CPU track rows, tests/test_torch_cli.py's bar
+
+
+def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
+    """``odam_torch.scripts.run_processor.main`` with every frame's kernel
+    launches (or, on the CPU, plain calls) and every scene's wall time
+    (frames, solve, merge, solve) recorded."""
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.runtime import processor
+    from odam_torch.scripts import run_processor
+
+    frames, scene_s = [], {}
+    inner_frame, inner_scene = processor.OdamPipeline.process_frame, run_processor.run_scene
+
+    def recording_frame(pipe, image, frame_id, T_wc):
+        counts = ca.LAUNCHES if pipe.device.type == "cuda" else ca.PLAIN_CALLS
+        before = dict(counts)
+        result = inner_frame(pipe, image, frame_id, T_wc)
+        frames.append({"frame": int(frame_id), "associated": pipe.sequence["has_tracks"],
+                       **{k: counts[k] - before[k] for k in counts}})
+        return result
+
+    def timed_scene(pipe, index, seq_id, args):
+        t0 = time.perf_counter()
+        out = inner_scene(pipe, index, seq_id, args)
+        scene_s[seq_id] = time.perf_counter() - t0      # ends in host copies: synchronised
+        return out
+
+    processor.OdamPipeline.process_frame = recording_frame
+    run_processor.run_scene = timed_scene
+    try:
+        t0 = time.perf_counter()
+        if run_processor.main(argv) != 0:
+            raise AssertionError(f"run_processor {' '.join(argv)} failed")
+        return frames, scene_s, time.perf_counter() - t0
+    finally:
+        processor.OdamPipeline.process_frame = inner_frame
+        run_processor.run_scene = inner_scene
+
+
+def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
+              devices: tuple[str, str] = ("cuda", "cpu")) -> tuple[dict, dict]:
+    """The CLI chain on the committed hard split's three scenes with the
+    committed weights, on the card and on the CPU; eval_scan2cad on both.
+
+    Card and CPU must give the same tracks per scene (frame ids and classes
+    exact, every row within atol 1e-3), bboxes_qc within IoU 0.95 per
+    object, and the same F1 table.  The IoU bar is the solve's own spread:
+    the Adam solve chatters across the kinks of its L1-of-maxima loss, so
+    two float orders end up to a few percent of IoU apart
+    (tests/test_torch_mapping.py); the rows, which the solve does not
+    touch, hold the online step to the tighter bar.  Launches per frame:
+    fused 6 before the store holds a track (2 encoder self, 2 decoder self,
+    2 decoder cross; 144 image tokens are below FLASH_MIN_KEYS), 14 after
+    (adding 4 GNN layers x 2 directions; the history fuser runs at batch 64,
+    over KERNEL_MAX_BATCH, on the plain path), flash 0.
+    """
+    import pickle
+
+    from odam_torch.eval import scan2cad
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.utils.host_boxes import robust_box3d_iou
+
+    split = os.path.join(SCENE_DATA, "val.txt")
+    with open(split) as f:
+        scenes = f.read().split()
+    common = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
+              "--scans_root", os.path.join(SCENE_DATA, "scans"), "--sequences", split,
+              "--detector_ckpt", os.path.join("artifacts", "torch", "rehearsal_hard_detr.npz"),
+              "--associator_ckpt", os.path.join("artifacts", "torch", "rehearsal_hard_assoc.npz"),
+              "--short_side", "192", "--max_size", "192", "--max_objs", "32",
+              "--max_views", "32"]
+    runs, results, f1 = {}, {}, {}
+    for device in devices:
+        out_dir = os.path.join(out_root, device)
+        ca.reset_counts()
+        frames, scene_s, seconds = _run_cli(common + ["--out_dir", out_dir, "--device", device])
+        runs[device] = {"frames": frames, "seconds": seconds, "scene_seconds": scene_s,
+                        "counts": dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)}
+        results[device] = {}
+        for s in scenes:
+            with open(os.path.join(out_dir, s, s), "rb") as f:
+                results[device][s] = pickle.load(f)
+        f1[device] = scan2cad.evaluate(out_dir, os.path.join(SCENE_DATA, "full_annotations.json"),
+                                       os.path.join(SCENE_DATA, "scans"), scenes,
+                                       min_views=10, verbose=device == devices[0])
+    card, cpu = devices
+    per_scene = {}
+    for s in scenes:
+        g, c = results[card][s], results[cpu][s]
+        if len(g["tracks"]) != len(c["tracks"]):
+            raise AssertionError(f"{s}: {len(g['tracks'])} tracks on the card, "
+                                 f"{len(c['tracks'])} on the CPU")
+        ious = []
+        for tg, tc, bg, bc in zip(g["tracks"], c["tracks"], g["bboxes_qc"], c["bboxes_qc"]):
+            if tg.shape != tc.shape or not np.array_equal(tg[:, :2], tc[:, :2]):
+                raise AssertionError(f"{s}: track frame ids or classes differ")
+            ious.append(robust_box3d_iou(bg, bc))
+        row_diff = max((float(np.abs(a - b).max()) for a, b in zip(g["tracks"], c["tracks"])),
+                       default=0.0)
+        if min(ious, default=1.0) < SCENE_QC_IOU:
+            raise AssertionError(f"{s}: bboxes_qc card vs CPU IoU {min(ious):.4f}")
+        if not row_diff <= SCENE_ROW_ATOL:
+            raise AssertionError(f"{s}: track rows card vs CPU max|diff| {row_diff:.3e} "
+                                 f"exceeds {SCENE_ROW_ATOL}")
+        per_scene[s] = {"tracks": len(g["tracks"]), "min_qc_iou_card_vs_cpu": min(ious, default=1.0),
+                        "max_row_abs_diff": row_diff}
+    if f1[card] != f1[cpu]:
+        raise AssertionError(f"F1 differs: card {f1[card]['average']}, cpu {f1[cpu]['average']}")
+    for device, run in runs.items():
+        for fr in run["frames"]:
+            want = {"flash_attention": 0, "fused_attention": 14 if fr["associated"] else 6}
+            got = {k: fr[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{device} frame {fr['frame']}: attention calls {got}, "
+                                     f"expected {want}")
+    frames = runs[card]["frames"]
+    report = {"phase": "scene", "scenes": per_scene, "f1": f1[card],
+              "f1_card_equals_cpu": True,
+              "seconds": {d: r["seconds"] for d, r in runs.items()},
+              "scene_seconds": {d: r["scene_seconds"] for d, r in runs.items()},
+              "frames": len(frames), "associated_frames": sum(fr["associated"] for fr in frames),
+              "launches": runs[card]["counts"], "cpu_plain_calls": runs[cpu]["counts"]}
+    return report, runs[card]["counts"]
+
+
+CLI_FULL_SCENE = "scene9700_00"
+CLI_FULL_FRAMES = 4
+
+
+def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device: str = "cuda",
+                 short_side: int = 800, n_frames: int = CLI_FULL_FRAMES,
+                 extra: tuple[str, ...] = ()) -> tuple[dict, dict]:
+    """``run_processor`` at full width: configs/detr_scan_net.yaml (ResNet-50
+    DETR, 8-layer GNN) with seeded weights, the first ``n_frames`` frames of
+    one committed scene resized from 192x192 to 800x800 by the CLI's own
+    loader and host resize (625 image tokens), and the default mapping
+    capacity (64 x 256 x 1000 x 200).  Detection and attach thresholds are
+    0, so that seeded weights start tracks on frame 0 and the associator
+    runs on every later frame; ``--min_views 2`` so that the solve's boxes,
+    not the detector averages, come out.  Launches per frame: flash 12 (6
+    encoder self, 6 decoder cross), fused 6 (decoder self) before the store
+    holds a track and 22 after (adding 8 GNN layers x 2 directions); the
+    history fuser is over KERNEL_MAX_BATCH, on the plain path."""
+    import pickle
+
+    from odam_torch.ops import cuda_attention as ca
+
+    os.makedirs(out_root, exist_ok=True)
+    split = os.path.join(out_root, "split.txt")
+    with open(split, "w") as f:
+        f.write(CLI_FULL_SCENE + "\n")
+    argv = ["--config_path", os.path.join("configs", "detr_scan_net.yaml"),
+            "--scans_root", os.path.join(SCENE_DATA, "scans"), "--sequences", split,
+            "--detector_ckpt", "", "--associator_ckpt", "",
+            "--short_side", str(short_side), "--max_frames", str(n_frames),
+            "--detect_threshold", "0.0", "--attach_threshold", "0.0", "--min_views", "2",
+            "--out_dir", out_root, "--device", device, *extra]
+    ca.reset_counts()
+    frames, scene_s, seconds = _run_cli(argv)
+    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    if len(frames) != n_frames or not any(fr["associated"] for fr in frames):
+        raise AssertionError(f"cli_full: {len(frames)} frames, "
+                             f"{sum(fr['associated'] for fr in frames)} associated")
+    for fr in frames:
+        want = {"flash_attention": 12, "fused_attention": 22 if fr["associated"] else 6}
+        got = {k: fr[k] for k in want}
+        if got != want:
+            raise AssertionError(f"cli_full frame {fr['frame']}: attention calls {got}, "
+                                 f"expected {want}")
+    with open(os.path.join(out_root, CLI_FULL_SCENE, CLI_FULL_SCENE), "rb") as f:
+        out = pickle.load(f)
+    if not out["tracks"] or len(out["bboxes_qc"]) != len(out["tracks"]):
+        raise AssertionError(f"cli_full: {len(out['tracks'])} tracks, "
+                             f"{len(out['bboxes_qc'])} boxes")
+    if not all(np.isfinite(x).all() for x in (*out["tracks"], *out["bboxes_qc"],
+                                              *out["bboxes_dl"])):
+        raise AssertionError("cli_full: non-finite tracks or boxes")
+    report = {"phase": "cli_full", "scene": CLI_FULL_SCENE, "frames": len(frames),
+              "short_side": short_side,
+              "associated_frames": sum(fr["associated"] for fr in frames),
+              "tracks": len(out["tracks"]), "seconds": seconds, "scene_seconds": scene_s,
+              "launches": counts, "align_copies": dict(ca.ALIGN_COPIES)}
+    return report, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -560,8 +987,22 @@ def main() -> int:
     for name, n in slice_launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    emit(mapping_run(rng, det_gpu, as_gpu))
+    del det_gpu, as_gpu
+    scene_report, scene_launches = scene_run()
+    emit(scene_report)
+    if scene_launches["fused_attention"] == 0:
+        raise AssertionError("fused_attention was never launched on the scene path")
+    cli_report, cli_launches = cli_full_run()
+    emit(cli_report)
+    for name, n in cli_launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched on the full-width CLI path")
     for row in kernel_rows:
         row["launches"] = slice_launches[row["name"]]
+        row["launches_by_path"] = {"slice": slice_launches[row["name"]],
+                                   "scene": scene_launches[row["name"]],
+                                   "cli_full": cli_launches[row["name"]]}
     emit({"kernels": kernel_rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -1,1 +1,1 @@
-"""Frame transport and normalisation."""
+"""ScanNet IO, frame loading, resize, transport and normalisation."""

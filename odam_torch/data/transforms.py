@@ -1,6 +1,9 @@
-"""Frame transport: YUV 4:2:0 packing on the host, decode + normalize on the device.
+"""Inference resize and normalize on the host; YUV 4:2:0 packing on the host,
+decode + normalize on the device.
 
-Counterpart of the two transport functions of ``odam_tpu/data/transforms.py``.
+Counterpart of the inference and transport functions of
+``odam_tpu/data/transforms.py``: shorter side to 800 with a 1333 cap, PIL
+bilinear resize, ImageNet normalization.
 """
 from __future__ import annotations
 
@@ -9,6 +12,55 @@ import torch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def target_size(h: int, w: int, short_side: int = 800, max_size: int = 1333,
+                pad_multiple: int = 1) -> tuple[int, int]:
+    """Resized (h, w): shorter side to ``short_side``, longer side capped at
+    ``max_size``, optionally rounded up to a multiple."""
+    scale = short_side / min(h, w)
+    if max(h, w) * scale > max_size:
+        scale = max_size / max(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    if pad_multiple > 1:
+        nh = -(-nh // pad_multiple) * pad_multiple
+        nw = -(-nw // pad_multiple) * pad_multiple
+    return nh, nw
+
+
+def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Bilinear resize (align_corners=False, PIL/torch convention) to float32
+    in [0, 1]."""
+    try:
+        from PIL import Image
+
+        pil = Image.fromarray(
+            (np.clip(img, 0, 1) * 255).astype(np.uint8) if img.dtype != np.uint8 else img
+        )
+        out = pil.resize((out_w, out_h), Image.BILINEAR)
+        return np.asarray(out).astype(np.float32) / 255.0
+    except ImportError:  # pure-NumPy fallback
+        h, w = img.shape[:2]
+        ys = (np.arange(out_h) + 0.5) * h / out_h - 0.5
+        xs = (np.arange(out_w) + 0.5) * w / out_w - 0.5
+        y0 = np.clip(np.floor(ys).astype(int), 0, h - 1)
+        x0 = np.clip(np.floor(xs).astype(int), 0, w - 1)
+        y1 = np.clip(y0 + 1, 0, h - 1)
+        x1 = np.clip(x0 + 1, 0, w - 1)
+        wy = np.clip(ys - y0, 0, 1)[:, None, None]
+        wx = np.clip(xs - x0, 0, 1)[None, :, None]
+        im = img.astype(np.float32)
+        if im.max() > 2.0:
+            im = im / 255.0
+        top = im[y0][:, x0] * (1 - wx) + im[y0][:, x1] * wx
+        bot = im[y1][:, x0] * (1 - wx) + im[y1][:, x1] * wx
+        return top * (1 - wy) + bot * wy
+
+
+def preprocess_image(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """uint8/float [H, W, 3] -> normalized float32 [out_h, out_w, 3]."""
+    resized = resize_bilinear(img, out_h, out_w)
+    return ((resized - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
 
 # BT.601 chroma -> RGB contribution of (U, V) per channel, columns = R, G, B.
 _YUV_K = ((0.0, -0.344136, 1.772),

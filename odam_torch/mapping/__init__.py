@@ -1,1 +1,1 @@
-"""Superquadric object state."""
+"""Superquadric state, scene constraints, scale prior, the solve and the merge."""

@@ -38,6 +38,17 @@ class AssociatorConfig:
     num_heads: int = 4
     decode: str = "exact"  # "exact" (Hungarian on the host) | "greedy" (on device)
 
+    @classmethod
+    def from_cfg(cls, cfg: dict) -> "AssociatorConfig":
+        """Build from the reference YAML schema (configs/detr_scan_net.yaml)."""
+        return cls(
+            descriptor_dim=int(cfg.get("descriptor_dim", 256)),
+            keypoint_encoder=tuple(cfg.get("keypoint_encoder", (78, 256, 256))),
+            gnn_layers=tuple(cfg.get("GNN_layers", ("self", "cross") * 4)),
+            self_gnn_layers=tuple(cfg.get("self_GNN_layers", ("self", "self"))),
+            sinkhorn_iterations=int(cfg.get("sinkhorn_iterations", 100)),
+        )
+
 
 class ChannelMLP(nn.Module):
     """Per-token MLP (Dense layers with ReLU between them)."""

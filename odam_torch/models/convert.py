@@ -62,6 +62,22 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+def load_flax_npz(path: str) -> dict:
+    """A Flax parameter tree saved as ``.npz`` with ``/``-joined paths as keys
+    (``tests/test_torch_checkpoints.py`` writes them from the committed
+    orbax checkpoints) -> the nested dict of numpy arrays that
+    ``build_detr`` / ``build_associator(flax_params=...)`` take."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as npz:
+        for key in npz.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = npz[key]
+    return tree
+
+
 def load_flax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Load a Flax tree into ``module``; every leaf must map to exactly one
     tensor of the module and every tensor must come from exactly one leaf."""

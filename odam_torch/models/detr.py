@@ -40,6 +40,35 @@ class DETRConfig:
     backbone: str = "resnet50"     # "resnet50" | "tiny"
     backbone_stage: int = 4        # feature stage fed to the transformer
 
+    @classmethod
+    def from_cfg(cls, cfg: dict) -> "DETRConfig":
+        """Build from the reference YAML schema (configs/detr_scan_net.yaml).
+
+        ``dropout`` is read by training only and ignored here.  Options the
+        port does not have yet (pre-norm, dilation, the learned position
+        encoding, the s2d/im2col stems; ROADMAP Queue 1 item 3) raise.
+        """
+        unported = {"pre_norm": False, "dilation": False, "position_embedding": "sine",
+                    "stem": "conv"}
+        for key, supported in unported.items():
+            if cfg.get(key, supported) != supported:
+                raise NotImplementedError(
+                    f"DETR option {key}={cfg.get(key)!r} is not ported yet (ROADMAP Queue 1 "
+                    f"item 3); the port supports {key}={supported!r}")
+        return cls(
+            num_classes=int(cfg.get(
+                "num_classes", 18 if cfg.get("dataset_file", "scan_net") == "scan_net" else 20)),
+            num_queries=int(cfg.get("num_queries", 100)),
+            hidden_dim=int(cfg.get("hidden_dim", 256)),
+            nheads=int(cfg.get("nheads", 8)),
+            enc_layers=int(cfg.get("enc_layers", 6)),
+            dec_layers=int(cfg.get("dec_layers", 6)),
+            dim_feedforward=int(cfg.get("dim_feedforward", 2048)),
+            aux_loss=bool(cfg.get("aux_loss", True)),
+            backbone=cfg.get("backbone", "resnet50"),
+            backbone_stage=int(cfg.get("backbone_stage", 4)),
+        )
+
 
 class HeadMLP(nn.Module):
     """3-layer ReLU MLP prediction head."""

@@ -99,7 +99,8 @@ class ResNet(nn.Module):
 class TinyBackbone(nn.Module):
     """Small conv backbone with GroupNorm residual stages (eps 1e-6, as Flax).
 
-    Stage s has stride 2**s and ``width * 2**(s-1)`` channels.
+    Stage s has stride 2**(s+1) (``conv1`` and each stage halve the size) and
+    ``width * 2**(s-1)`` channels.
     """
 
     def __init__(self, width: int = 32, return_stages: Sequence[int] = (4,)):

@@ -19,14 +19,17 @@ _DENSE = 512
 _PHI_FRAC = float(np.float32(0.6180339887498949))   # as JAX rounds the weak constant
 
 
-def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
-    """float32 linspace with JAX's formula: start*(1-s) + stop*s, s = i/(num-1),
-    and the end point exactly ``stop``."""
+def linspace(start: float, stop: float, num: int, device, endpoint: bool = True
+             ) -> torch.Tensor:
+    """float32 linspace with JAX's formula: start*(1-s) + stop*s with
+    s = i/(num-1), and the end point exactly ``stop`` (``endpoint=False``:
+    s = i/num and no end point)."""
+    div = num - 1 if endpoint else num
     start_t = torch.full((), start, dtype=torch.float32, device=device)
     stop_t = torch.full((), stop, dtype=torch.float32, device=device)
-    step = torch.arange(num - 1, dtype=torch.float32, device=device) / float(num - 1)
+    step = torch.arange(div, dtype=torch.float32, device=device) / float(div)
     out = start_t * (1 - step) + stop_t * step
-    return torch.cat([out, stop_t[None]])
+    return torch.cat([out, stop_t[None]]) if endpoint else out
 
 
 def _superellipse_xy(theta, a1, a2, e):
@@ -40,13 +43,13 @@ def equal_arclength_angles(a1: torch.Tensor, a2: torch.Tensor, e: torch.Tensor,
                            dense: int = _DENSE) -> torch.Tensor:
     """[..., num_out] angles equally spaced in superellipse arclength."""
     dev = a1.device
-    theta = _linspace(theta_min, theta_max, dense, dev).expand(a1.shape + (dense,))
+    theta = linspace(theta_min, theta_max, dense, dev).expand(a1.shape + (dense,))
     pts = _superellipse_xy(theta, a1, a2, e)
     d = torch.diff(pts, dim=-2)
     seg = torch.sqrt((d * d).sum(-1))
     cdf = torch.cat([torch.zeros_like(seg[..., :1]), torch.cumsum(seg, dim=-1)], dim=-1)
     cdf = cdf / torch.clamp(cdf[..., -1:], min=1e-12)
-    levels = _linspace(0.0, 1.0, num_out, dev)
+    levels = linspace(0.0, 1.0, num_out, dev)
     idx = torch.clamp((cdf[..., None, :] <= levels[:, None]).sum(-1) - 1, 0, dense - 2)
     c0 = torch.gather(cdf, -1, idx)
     c1 = torch.gather(cdf, -1, idx + 1)

@@ -11,10 +11,15 @@ from __future__ import annotations
 
 import torch
 
+# A 0-dim CPU tensor joins CUDA operands as a kernel argument (no copy).
+# torch.maximum splits the gradient at a tie, as jnp.maximum does;
+# clamp(min=) would give all of it to |x|.
+_MIN_MAG = torch.tensor(1e-6)
+
 
 def fexp(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """sign(x) * max(|x|, 1e-6) ** p."""
-    return torch.sign(x) * torch.pow(torch.clamp(torch.abs(x), min=1e-6), p)
+    return torch.sign(x) * torch.pow(torch.maximum(torch.abs(x), _MIN_MAG), p)
 
 
 def squash_shape(shape: torch.Tensor, min_: float = 0.2, max_: float = 1.6) -> torch.Tensor:
@@ -42,7 +47,7 @@ def sq_surface_points(scales: torch.Tensor, epsilons: torch.Tensor, etas: torch.
 
     def clamp_mag(v):
         s = (v > 0).to(v.dtype) * 2.0 - 1.0
-        return s * torch.clamp(torch.abs(v), min=1e-6)
+        return s * torch.maximum(torch.abs(v), _MIN_MAG)
 
     x, y, z = clamp_mag(x), clamp_mag(y), clamp_mag(z)
     nx = (ce ** 2) * (co ** 2) / x

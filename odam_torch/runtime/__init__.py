@@ -1,1 +1,1 @@
-"""The online per-frame pipeline and its track store."""
+"""The pipeline (per-frame step, scene-end mapping and merge) and its track store."""

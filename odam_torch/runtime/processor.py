@@ -1,10 +1,11 @@
-"""The online per-frame pipeline: detect -> associate -> track.
+"""The pipeline: detect -> associate -> track per frame, then map and merge.
 
-Counterpart of the online half of ``odam_tpu/runtime/processor.py``.  One
-step runs, on the device: the DETR forward, postprocess with the fixpoint
-3D NMS, detection-row assembly and the lift to world, the re-projection of
-each track's mean-state superquadric surface, the associator (GNN +
-Sinkhorn), and the static-shape track-store update with its FrameLog.
+Counterpart of ``odam_tpu/runtime/processor.py`` (the online mode with the
+"sampled" track re-projection and the Adam solve).  One step runs, on the
+device: the DETR forward, postprocess with the fixpoint 3D NMS,
+detection-row assembly and the lift to world, the re-projection of each
+track's mean-state superquadric surface, the associator (GNN + Sinkhorn),
+and the static-shape track-store update with its FrameLog.
 
 Two places differ from the JAX step, both on purpose:
 
@@ -18,11 +19,17 @@ Two places differ from the JAX step, both on purpose:
   one blocking copy of the [T+1, N+1] log assignment per associated frame.
 
 ``OdamPipeline.host_syncs`` counts the blocking waits of both kinds.
+
+At scene end, ``optim_process`` packs the tracks into fixed-shape
+constraints on the host, solves all objects' superquadrics on the device
+and copies the results back once; ``merge_process`` fuses fragmented tracks
+on the host.
 """
 from __future__ import annotations
 
 import logging
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -31,7 +38,9 @@ import torch
 from torch.profiler import record_function
 
 from .. import resolve_device
+from ..data.loader import to_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, yuv420_to_normalized_device
+from ..mapping import constraints, merge, optimizer, prior
 from ..mapping import superquadric as sq
 from ..models import detr as detr_mod
 from ..models.associator import Associator
@@ -49,8 +58,17 @@ class PipelineConfig:
     max_tracks: int = 64
     max_dets: int = 30
     window: int = 100
+    representation: str = "super_quadric"
+    use_prior: bool = True
     no_code: bool = True
     track_bbox_samples: int = 1000   # surface samples for track re-projection
+    optim_solver: str = "adam"       # "lm" is not ported yet (ROADMAP Queue 1 item 7)
+    optim_iters: int = 200
+    optim_samples: int = 1000
+    min_views: int = 10
+    robust_init: bool = False        # median (vs the reference's mean) mapping init
+    max_objs: int = 64               # mapping-stage object capacity
+    max_views: int = 256             # mapping-stage views per object
     max_log_frames: int = 6000       # device observation-log capacity per chunk
 
 
@@ -108,7 +126,9 @@ def prepare_track_inputs(store: tracker.TrackStore, T_wc: torch.Tensor, K: torch
     (shape logits 0, epsilon 0.9): ``n_samples`` surface points projected
     into the current camera with a plain z division, normalized and clipped
     to [-1, 2], and written into every window row; world state is re-encoded
-    in the current camera frame; invalid window rows are -1.
+    in the current camera frame; invalid window rows are -1.  With
+    ``ODAM_FAULT_INJECT=stale_track_bbox`` the rows keep their attach-time
+    bbox instead (test instrumentation).
     """
     T_cap, W, _ = store.window.shape
     dev = store.window.device
@@ -120,15 +140,24 @@ def prepare_track_inputs(store: tracker.TrackStore, T_wc: torch.Tensor, K: torch
     pix = torch.einsum("ij,tsj->tsi", K, pts_c)
     uv = pix[..., :2] / pix[..., 2:]
     box = torch.cat([uv.amin(dim=1), uv.amax(dim=1)], dim=-1)
-    box_n = torch.clamp(box / box_ops.xyxy_scale(img_w, img_h, dev), -1.0, 2.0)
+    norm = box_ops.xyxy_scale(img_w, img_h, dev)
+    box_n = torch.clamp(box / norm, -1.0, 2.0)
 
     win = store.window
+    if os.environ.get("ODAM_FAULT_INJECT") == "stale_track_bbox":
+        # Test instrumentation (examples/cli_rehearsal/ablate.py): skip the
+        # per-frame refresh and feed each window row's stored attach-time
+        # bbox, to show that the rehearsal's F1 catches an injected pipeline
+        # bug.  Never set in production.
+        box_rows = torch.clamp(win[..., 78:82] / norm, -1.0, 2.0)
+    else:
+        box_rows = box_n[:, None, :].expand(T_cap, W, 4)
     cam_azi = geo.camera_azimuth(T_wc)
     t_co = geo.transform_points(T_cw, win[..., 9:12].reshape(T_cap * W, 3)).reshape(T_cap, W, 3)
     ang = win[..., 12] - cam_azi
     out = torch.cat([
         win[..., 0:2],
-        box_n[:, None, :].expand(T_cap, W, 4),
+        box_rows,
         win[..., 6:9],
         t_co,
         torch.sin(ang)[..., None],
@@ -211,8 +240,8 @@ def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
 class OdamPipeline:
     """Host driver around the per-frame step: ``init_sequence(K, img_h,
     img_w)``, then ``process_frame(image, frame_id, T_wc)`` per frame, then
-    ``tracks`` and ``overflow_report()``.  Runs on the card unless
-    ``device="cpu"``."""
+    ``tracks``, ``overflow_report()``, and at scene end ``optim_process`` /
+    ``merge_process``.  Runs on the card unless ``device="cpu"``."""
 
     def __init__(self, detr: DETR, associator: Associator,
                  config: PipelineConfig = PipelineConfig(),
@@ -252,19 +281,11 @@ class OdamPipeline:
             "count_event": None,
         }
 
-    def _to_device(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device, non_blocking=True)
-        t = torch.from_numpy(np.require(x, requirements=("C", "W")))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _normalized_image(self, image) -> torch.Tensor:
         if isinstance(image, tuple):
-            y, uv = (self._to_device(p) for p in image)
+            y, uv = to_device(image, self.device)
             return yuv420_to_normalized_device(y, uv, self._mean, self._std)
-        img = self._to_device(image)
+        img = to_device(image, self.device)
         if img.dtype == torch.uint8:
             return (img.float() / 255.0 - self._mean) / self._std
         return img.float()
@@ -308,7 +329,7 @@ class OdamPipeline:
         with torch.no_grad():
             result = frame_step_body(
                 self.cfg, self.detr, self.associator, seq["store"], seq["log"],
-                self._normalized_image(image), float(frame_id), self._to_device(T_wc),
+                self._normalized_image(image), float(frame_id), to_device(T_wc, self.device),
                 seq["K_dev"], seq["img_w"], seq["img_h"], self._has_tracks)
         seq["store"] = result.store
         seq["log"] = result.log
@@ -354,3 +375,58 @@ class OdamPipeline:
         if warn and (report["n_dropped"] or report["log_frames_lost"]):
             logging.getLogger("OdamPipeline").warning("capacity overflow: %s", report)
         return report
+
+    # -------------------------------------------------------------- mapping
+    def optim_process(self, tracks: list[np.ndarray]) -> dict:
+        """Multi-view superquadric solve over all tracks of the sequence.
+
+        Returns the tracks kept (at most ``max_objs``, longest first, given
+        back in input order) with their optimized oriented boxes
+        (``bboxes_qc``), detector-average boxes (``bboxes_dl``) and
+        parameters (``quadrics``, SQParams of numpy arrays), all numpy, and
+        the solve's per-iteration ``loss_log``.
+        """
+        seq, cfg, dev = self.sequence, self.cfg, self.device
+        if cfg.optim_solver != "adam":
+            raise NotImplementedError(
+                f"optim_solver={cfg.optim_solver!r} is not ported yet (ROADMAP Queue 1 item 7: "
+                "mapping/lm_solver.py); use 'adam'")
+        sc = constraints.build_scene_constraints(
+            tracks, np.asarray(seq["usable_frames"]), np.asarray(seq["P_cws"]),
+            seq["img_h"], seq["img_w"], cfg.max_objs, cfg.max_views, cfg.min_views,
+            robust_init=cfg.robust_init)
+
+        def on_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        init = sq.init_params(on_dev(sc.init_translate), on_dev(sc.init_angle),
+                              on_dev(sc.init_dims), cfg.representation)
+        res = optimizer.optimize_superquadrics(
+            init, on_dev(sc.boxes), on_dev(sc.box_mask), on_dev(sc.view_mask), on_dev(sc.P_cw),
+            on_dev(sc.optimize_mask), on_dev(prior.prior_invcov_for_classes(sc.obj_class)),
+            n_iters=cfg.optim_iters, n_samples=cfg.optim_samples,
+            representation=cfg.representation, use_prior=cfg.use_prior)
+        # the host's first read waits for the solve; the rest are copies
+        host = [t.cpu().numpy() for t in (res.corners, res.corners_detector, res.loss_log,
+                                          *res.params)]
+        corners, corners_dl, loss_log, params = host[0], host[1], host[2], host[3:]
+        n_objs = int(sc.obj_valid.sum())
+        # back to input track order (the constraints sort longest first)
+        order = np.argsort([-len(t) for t in tracks], kind="stable")[: sc.boxes.shape[0]]
+        inv = {int(t): s for s, t in enumerate(order)}
+        out = {"tracks": [], "bboxes_qc": [], "bboxes_dl": [], "quadrics": [],
+               "loss_log": loss_log}
+        for t_idx in range(len(tracks)):
+            if t_idx not in inv or inv[t_idx] >= n_objs:
+                continue
+            s = inv[t_idx]
+            out["tracks"].append(tracks[t_idx])
+            out["bboxes_qc"].append(corners[s])
+            out["bboxes_dl"].append(corners_dl[s])
+            out["quadrics"].append(sq.SQParams(*[np.asarray(leaf[s]) for leaf in params]))
+        return out
+
+    def merge_process(self, data: dict) -> list[np.ndarray]:
+        """Fuse fragmented tracks by the overlap of their optimized boxes."""
+        return merge.merge_tracks(data["tracks"], data["bboxes_qc"],
+                                  np.asarray(self.sequence["usable_frames"]))

@@ -1,1 +1,1 @@
-"""Box and geometry helpers."""
+"""Box and geometry helpers, device and exact host versions."""

@@ -1,8 +1,18 @@
-"""Rigid transforms and rotations (the subset of ``odam_tpu/utils/geometry.py``
-the online step uses).  Shape-polymorphic in the leading axes."""
+"""Rigid transforms, rotations and box corners (the subset of
+``odam_tpu/utils/geometry.py`` the online step, the mapping stage and the
+evaluation use).  Shape-polymorphic in the leading axes."""
 from __future__ import annotations
 
 import torch
+
+# Corner order of get_3d_box: the top face (+z) first, then the bottom face.
+_CORNER_SIGNS = ((1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1),
+                 (1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1))
+
+
+def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
+    """Append a 1 to the last axis: [..., N, 3] -> [..., N, 4]."""
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -37,3 +47,15 @@ def camera_azimuth(T_wc: torch.Tensor) -> torch.Tensor:
     """Azimuth of the camera's optical (+z) axis in the world frame (z-up)."""
     fwd = T_wc[..., :3, 2]
     return torch.atan2(fwd[..., 1], fwd[..., 0])
+
+
+def corners_from_dims(dims: torch.Tensor) -> torch.Tensor:
+    """8 corners of an origin-centred axis-aligned box: [..., 3] -> [..., 8, 3]."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=dims.dtype, device=dims.device)
+    return signs * (dims[..., None, :] / 2.0)
+
+
+def box3d_corners(dims: torch.Tensor, angle: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """Oriented (yaw-only) 3D box corners: [..., 8, 3]."""
+    pts = corners_from_dims(dims)
+    return torch.einsum("...ij,...nj->...ni", rotz(angle), pts) + center[..., None, :]

@@ -40,6 +40,17 @@ MAIN_PATH = {
     "GNN detection self": ("fused", 1, 30, 30, 4, 64, None),
     "GNN track<-detection cross": ("fused", 1, 64, 30, 4, 64, None),
     "GNN detection<-track cross": ("fused", 1, 30, 64, 4, 64, 20),
+    # the scene path: the committed rehearsal model on 192x192 frames
+    "scene encoder self": ("fused", 1, 144, 144, 4, 16, 0),
+    "scene decoder cross": ("fused", 1, 16, 144, 4, 16, 0),
+    "scene decoder self": ("fused", 1, 16, 16, 4, 16, None),
+    "scene GNN track self": ("fused", 1, 64, 64, 4, 16, 45),
+    "scene GNN detection self": ("fused", 1, 30, 30, 4, 16, None),
+    "scene GNN track<-detection cross": ("fused", 1, 64, 30, 4, 16, None),
+    "scene GNN detection<-track cross": ("fused", 1, 30, 64, 4, 16, 59),
+    # the full-width CLI run on frames resized to 800x800
+    "cli_full encoder self": ("flash", 1, 625, 625, 8, 32, 0),
+    "cli_full decoder cross": ("flash", 1, 100, 625, 8, 32, 0),
 }
 
 
