@@ -111,3 +111,15 @@ def yuv420_to_normalized_device(y: torch.Tensor, uv: torch.Tensor, mean: torch.T
     s = 1.0 / (255.0 * std)
     t = mean / std
     return rgb * s - t
+
+
+def resize_bilinear_device(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[..., H, W, C] float -> [..., out_h, out_w, C], the counterpart of
+    ``jax.image.resize(img, shape, "bilinear")``: half-pixel centres, and a
+    triangle kernel widened by the scale when downsampling (antialiased), with
+    the weights that fall outside the image renormalised away."""
+    lead, (H, W, C) = img.shape[:-3], img.shape[-3:]
+    x = img.reshape((-1, H, W, C)).permute(0, 3, 1, 2)
+    y = torch.nn.functional.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                                        align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).reshape(lead + (out_h, out_w, C))

@@ -38,6 +38,7 @@ class OptimizeResult(NamedTuple):
     loss_log: torch.Tensor           # [n_iters] total 2D loss per iteration
     corners: torch.Tensor            # [O, 8, 3] oriented boxes of the surfaces
     corners_detector: torch.Tensor   # [O, 8, 3] detector-average fallback boxes
+    fallback: torch.Tensor | None = None   # [O] bool, objects the LM path left to Adam
 
 
 def projected_extremes(params: sq.SQParams, P_cw: torch.Tensor, n_samples: int) -> torch.Tensor:

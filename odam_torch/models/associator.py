@@ -9,6 +9,11 @@ The exact decode runs on the host (see :mod:`odam_torch.ops.lap`): one
 blocking copy per call of the [B, T+1, N+1] log assignment and both masks,
 counted in ``Associator.host_syncs``.
 
+``AssociatorConfig.dtype`` is the compute dtype of the encoder, the GNN and
+the final projection, with Flax's semantics (:mod:`.layers`); the time
+encodings are made in float32 and cast, and the scores, the bin score,
+Sinkhorn and the decode run in float32, as in JAX.
+
 Feature layout per entity (79 columns): 0 time index | 1 class | 2:6
 normalized bbox | 6:9 dims | 9:12 t_co | 12 sin azi | 13 cos azi | 14 score
 | 15:79 shape code.
@@ -26,6 +31,7 @@ from .. import resolve_device
 from ..ops import lap, sinkhorn
 from ..ops.attention import mha_core
 from . import convert, position
+from .layers import Dense
 
 
 @dataclass(frozen=True)
@@ -37,9 +43,10 @@ class AssociatorConfig:
     sinkhorn_iterations: int = 100
     num_heads: int = 4
     decode: str = "exact"  # "exact" (Hungarian on the host) | "greedy" (on device)
+    dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
 
     @classmethod
-    def from_cfg(cls, cfg: dict) -> "AssociatorConfig":
+    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32) -> "AssociatorConfig":
         """Build from the reference YAML schema (configs/detr_scan_net.yaml)."""
         return cls(
             descriptor_dim=int(cfg.get("descriptor_dim", 256)),
@@ -47,17 +54,18 @@ class AssociatorConfig:
             gnn_layers=tuple(cfg.get("GNN_layers", ("self", "cross") * 4)),
             self_gnn_layers=tuple(cfg.get("self_GNN_layers", ("self", "self"))),
             sinkhorn_iterations=int(cfg.get("sinkhorn_iterations", 100)),
+            dtype=dtype,
         )
 
 
 class ChannelMLP(nn.Module):
     """Per-token MLP (Dense layers with ReLU between them)."""
 
-    def __init__(self, channels: Sequence[int]):
+    def __init__(self, channels: Sequence[int], dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n = len(channels) - 1
         for i in range(self.n):
-            self.add_module(f"layer{i}", nn.Linear(channels[i], channels[i + 1]))
+            self.add_module(f"layer{i}", Dense(channels[i], channels[i + 1], dtype=dtype))
 
     def forward(self, x):
         for i in range(self.n):
@@ -70,14 +78,14 @@ class ChannelMLP(nn.Module):
 class AttentionalPropagation(nn.Module):
     """message = MHA(x, source); returns MLP([x ; message])."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.merge = nn.Linear(d_model, d_model)
-        self.mlp = ChannelMLP((2 * d_model, 2 * d_model, d_model))
+        self.q_proj = Dense(d_model, d_model, dtype=dtype)
+        self.k_proj = Dense(d_model, d_model, dtype=dtype)
+        self.v_proj = Dense(d_model, d_model, dtype=dtype)
+        self.merge = Dense(d_model, d_model, dtype=dtype)
+        self.mlp = ChannelMLP((2 * d_model, 2 * d_model, d_model), dtype)
 
     def forward(self, x, source, key_padding_mask=None):
         msg = mha_core(self.q_proj(x), self.k_proj(source), self.v_proj(source),
@@ -98,12 +106,14 @@ class Associator(nn.Module):
         D = c.descriptor_dim
         if c.decode not in ("exact", "greedy"):
             raise ValueError(f"unknown decode {c.decode!r}")
-        self.encoder = ChannelMLP(tuple(c.keypoint_encoder))
+        if c.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {c.dtype} is not float32 or bfloat16")
+        self.encoder = ChannelMLP(tuple(c.keypoint_encoder), c.dtype)
         for i, _ in enumerate(c.self_gnn_layers):
-            self.add_module(f"fuser_layer{i}", AttentionalPropagation(D, c.num_heads))
+            self.add_module(f"fuser_layer{i}", AttentionalPropagation(D, c.num_heads, c.dtype))
         for i, _ in enumerate(c.gnn_layers):
-            self.add_module(f"gnn_layer{i}", AttentionalPropagation(D, c.num_heads))
-        self.final_proj = nn.Linear(D, D)
+            self.add_module(f"gnn_layer{i}", AttentionalPropagation(D, c.num_heads, c.dtype))
+        self.final_proj = Dense(D, D, dtype=c.dtype)
         self.bin_score = nn.Parameter(torch.ones(()))
         self.host_syncs = 0
 
@@ -121,9 +131,10 @@ class Associator(nn.Module):
         B, T, W, _ = tracks.shape
         D = c.descriptor_dim
 
-        trk = self.encoder(tracks[..., 1:]) + position.timestep_encoding(tracks[..., 0], D)
+        dt = c.dtype
+        trk = self.encoder(tracks[..., 1:]) + position.timestep_encoding(tracks[..., 0], D).to(dt)
         det = self.encoder(detections[..., 1:]) + position.timestep_encoding(
-            detections[..., 0], D)
+            detections[..., 0], D).to(dt)
 
         # history fusion: self-attention over each track's window (B*T rows,
         # the plain path), then the mean over the full window

@@ -8,6 +8,9 @@ heads (class, 2D box, 2D center offset, azimuth bins, 3D size, depth) with
 ``Detections`` contract.
 
 Public layouts follow the JAX package: images [B, H, W, 3] NHWC.
+``DETRConfig.dtype`` is the compute dtype, with Flax's semantics
+(:mod:`.layers`): float32 parameters cast at use, bf16 activations and
+heads; ``postprocess`` casts every head to float32 first.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch import nn
 from .. import resolve_device
 from ..utils import boxes as box_ops
 from . import convert, position, resnet
+from .layers import Conv, Dense
 from .transformer import Transformer
 
 MAX_DETECTIONS = 30
@@ -39,9 +43,10 @@ class DETRConfig:
     num_angle_bins: int = 30
     backbone: str = "resnet50"     # "resnet50" | "tiny"
     backbone_stage: int = 4        # feature stage fed to the transformer
+    dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
 
     @classmethod
-    def from_cfg(cls, cfg: dict) -> "DETRConfig":
+    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32) -> "DETRConfig":
         """Build from the reference YAML schema (configs/detr_scan_net.yaml).
 
         ``dropout`` is read by training only and ignored here.  Options the
@@ -67,18 +72,20 @@ class DETRConfig:
             aux_loss=bool(cfg.get("aux_loss", True)),
             backbone=cfg.get("backbone", "resnet50"),
             backbone_stage=int(cfg.get("backbone_stage", 4)),
+            dtype=dtype,
         )
 
 
 class HeadMLP(nn.Module):
     """3-layer ReLU MLP prediction head."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int = 3):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         for i in range(num_layers):
-            self.add_module(f"layer{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"layer{i}", Dense(dims[i], dims[i + 1], dtype=dtype))
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -92,35 +99,39 @@ class DETR(nn.Module):
     def __init__(self, config: DETRConfig = DETRConfig()):
         super().__init__()
         c = self.config = config
+        dt = c.dtype
+        if dt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dt} is not float32 or bfloat16")
         if c.backbone == "tiny":
-            self.backbone = resnet.TinyBackbone(return_stages=(c.backbone_stage,))
+            self.backbone = resnet.TinyBackbone(return_stages=(c.backbone_stage,), dtype=dt)
         elif c.backbone == "resnet50":
-            self.backbone = resnet.ResNet(return_stages=(c.backbone_stage,))
+            self.backbone = resnet.ResNet(return_stages=(c.backbone_stage,), dtype=dt)
         else:
             raise ValueError(f"unknown backbone {c.backbone!r}")
         D = c.hidden_dim
-        self.input_proj = nn.Conv2d(self.backbone.channels(c.backbone_stage), D, 1)
+        self.input_proj = Conv(self.backbone.channels(c.backbone_stage), D, 1, dtype=dt)
         self.query_embed = nn.Parameter(torch.zeros(c.num_queries, D))
         self.transformer = Transformer(D, c.nheads, c.enc_layers, c.dec_layers,
-                                       c.dim_feedforward)
-        self.class_embed = nn.Linear(D, c.num_classes + 1)
-        self.bbox_embed = HeadMLP(D, D, 4)
-        self.offset_embed = HeadMLP(D, D, 2)
-        self.angle_embed = HeadMLP(D, D, c.num_angle_bins)
-        self.size_embed = HeadMLP(D, D, 3)
-        self.depth_embed = HeadMLP(D, D, 1)
+                                       c.dim_feedforward, dt)
+        self.class_embed = Dense(D, c.num_classes + 1, dtype=dt)
+        self.bbox_embed = HeadMLP(D, D, 4, dtype=dt)
+        self.offset_embed = HeadMLP(D, D, 2, dtype=dt)
+        self.angle_embed = HeadMLP(D, D, c.num_angle_bins, dtype=dt)
+        self.size_embed = HeadMLP(D, D, 3, dtype=dt)
+        self.depth_embed = HeadMLP(D, D, 1, dtype=dt)
 
     def forward(self, images: torch.Tensor, pixel_mask: torch.Tensor | None = None) -> dict:
         """
         Args:
-            images: [B, H, W, 3] normalized float32 images.
+            images: [B, H, W, 3] normalized images (cast to the compute dtype).
             pixel_mask: [B, H, W] bool, True = padded pixel.
 
         Returns:
             dict with pred_logits [B, Q, C+1], pred_boxes [B, Q, 4] (cxcywh,
             sigmoid), pred_angle [B, Q, bins], pred_offset [B, Q, 2],
             pred_size [B, Q, 3], pred_depth [B, Q, 1], pred_obj_features
-            [B, Q, D], and aux_outputs (one dict per earlier decoder layer).
+            [B, Q, D], and aux_outputs (one dict per earlier decoder layer),
+            all in the compute dtype.
         """
         c = self.config
         B, H, W, _ = images.shape
@@ -131,7 +142,8 @@ class DETR(nn.Module):
         # "nearest-exact" samples at half-pixel centres, as jax.image.resize does
         feat_mask = F.interpolate(pixel_mask[:, None].float(), size=(fh, fw),
                                   mode="nearest-exact")[:, 0].bool()
-        pos = position.sine_position_encoding(feat_mask, num_pos_feats=c.hidden_dim // 2)
+        pos = position.sine_position_encoding(feat_mask, num_pos_feats=c.hidden_dim // 2,
+                                              dtype=c.dtype)
         src = self.input_proj(feats).permute(0, 2, 3, 1)
         hs, _ = self.transformer(src, feat_mask, self.query_embed, pos)
 

@@ -12,15 +12,17 @@ import torch
 
 
 def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
-                           temperature: float = 10000.0) -> torch.Tensor:
+                           temperature: float = 10000.0,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """2D sine positional features from a padding mask; the cumulative
-    coordinates are normalized over the unpadded region to [0, 2 pi].
+    coordinates are normalized over the unpadded region to [0, 2 pi].  Made
+    in float32, then cast to ``dtype``.
 
     Args:
         mask: [B, H, W] bool, True = padded pixel.
 
     Returns:
-        [B, H, W, 2 * num_pos_feats] float32 (y-features first).
+        [B, H, W, 2 * num_pos_feats] in ``dtype`` (y-features first).
     """
     not_mask = (~mask).float()
     y_embed = torch.cumsum(not_mask, dim=1)
@@ -37,7 +39,7 @@ def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
     # interleave sin/cos over channel pairs
     pos_x = torch.stack([pos_x[..., 0::2].sin(), pos_x[..., 1::2].cos()], dim=-1).flatten(-2)
     pos_y = torch.stack([pos_y[..., 0::2].sin(), pos_y[..., 1::2].cos()], dim=-1).flatten(-2)
-    return torch.cat([pos_y, pos_x], dim=-1)
+    return torch.cat([pos_y, pos_x], dim=-1).to(dtype)
 
 
 def timestep_encoding(position: torch.Tensor, d_model: int = 256) -> torch.Tensor:

@@ -21,7 +21,9 @@ Softmax and accumulation run in f32 and the output has the input dtype
 
 On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
 ``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
-``LAUNCHES``, or raises.  There is no fallback from one to the other.  The
+``LAUNCHES``, or raises.  ``LAUNCHES_BY_DTYPE`` and ``PLAIN_CALLS_BY_DTYPE``
+split the same counts by the dtype of q ("float32" or "bfloat16"), so a run
+can show which instantiation of a kernel it launched.  There is no fallback from one to the other.  The
 kernels stage K/V with 16-byte ``cp.async`` copies: a q, k or v whose pointer
 or strides are not 16-byte aligned is copied first, and the copy is counted
 in ``ALIGN_COPIES``.
@@ -57,6 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # wrapper made for CPU tensors (the same routing, observable in CPU tests).
 LAUNCHES = {"fused_attention": 0, "flash_attention": 0}
 PLAIN_CALLS = {"fused_attention": 0, "flash_attention": 0}
+LAUNCHES_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in LAUNCHES}
+PLAIN_CALLS_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in PLAIN_CALLS}
 # Copies a wrapper made of a q, k or v that cp.async could not read as it was.
 ALIGN_COPIES = {"fused_attention": 0, "flash_attention": 0}
 
@@ -68,6 +72,14 @@ def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS, ALIGN_COPIES):
         for name in counts:
             counts[name] = 0
+    for counts in (LAUNCHES_BY_DTYPE, PLAIN_CALLS_BY_DTYPE):
+        for by_dtype in counts.values():
+            for dtype in by_dtype:
+                by_dtype[dtype] = 0
+
+
+def _dtype_name(x: torch.Tensor) -> str:
+    return str(x.dtype).replace("torch.", "")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -192,6 +204,7 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_DTYPE[name][_dtype_name(q)] += 1
     return out
 
 
@@ -201,6 +214,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
         PLAIN_CALLS["fused_attention"] += 1
+        PLAIN_CALLS_BY_DTYPE["fused_attention"][_dtype_name(q)] += 1
         return attention_plain(q, k, v, key_padding_mask)
     if k.shape[1] >= FUSED_MAX_KEYS:
         raise ValueError(f"fused_attention holds Lk < {FUSED_MAX_KEYS} keys, got {k.shape[1]}")
@@ -213,5 +227,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
         PLAIN_CALLS["flash_attention"] += 1
+        PLAIN_CALLS_BY_DTYPE["flash_attention"][_dtype_name(q)] += 1
         return attention_plain(q, k, v, key_padding_mask)
     return _launch("flash_attention", q, k, v, key_padding_mask)

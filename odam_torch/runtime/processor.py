@@ -1,11 +1,15 @@
 """The pipeline: detect -> associate -> track per frame, then map and merge.
 
-Counterpart of ``odam_tpu/runtime/processor.py`` (the online mode with the
-"sampled" track re-projection and the Adam solve).  One step runs, on the
-device: the DETR forward, postprocess with the fixpoint 3D NMS,
-detection-row assembly and the lift to world, the re-projection of each
-track's mean-state superquadric surface, the associator (GNN + Sinkhorn),
-and the static-shape track-store update with its FrameLog.
+Counterpart of ``odam_tpu/runtime/processor.py``.  One step runs, on the
+device: the frame's transport decode (uint8 RGB or YUV 4:2:0, normalized,
+optionally resized from its raw size, in the model's dtype), the DETR
+forward, postprocess with the fixpoint 3D NMS, detection-row assembly and
+the lift to world, the re-projection of each track's mean state ("sampled":
+1000 surface points of the mean superquadric; "exact": the closed-form
+dual-conic bbox of the mean ellipsoid), the associator (GNN + Sinkhorn),
+and the static-shape track-store update with its FrameLog.  The step splits
+after the detector: :func:`detect_frame` and :func:`track_step`, so that
+the offline mode (:mod:`odam_torch.runtime.offline`) shares the tracking.
 
 Two places differ from the JAX step, both on purpose:
 
@@ -22,14 +26,17 @@ Two places differ from the JAX step, both on purpose:
 
 At scene end, ``optim_process`` packs the tracks into fixed-shape
 constraints on the host, solves all objects' superquadrics on the device
-and copies the results back once; ``merge_process`` fuses fragmented tracks
-on the host.
+(Adam, or LM with its Adam fallback) and copies the results back once;
+``merge_process`` fuses fragmented tracks on the host.
+``save_sequence_state`` / ``restore_sequence_state`` checkpoint a sequence
+mid-scene as a pickle of numpy arrays, which either package can write.
 """
 from __future__ import annotations
 
 import logging
 import math
 import os
+import pickle
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -39,8 +46,9 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..data.loader import to_device
-from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, yuv420_to_normalized_device
-from ..mapping import constraints, merge, optimizer, prior
+from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, resize_bilinear_device,
+                               yuv420_to_normalized_device)
+from ..mapping import constraints, lm_solver, merge, optimizer, prior, quadric
 from ..mapping import superquadric as sq
 from ..models import detr as detr_mod
 from ..models.associator import Associator
@@ -62,7 +70,8 @@ class PipelineConfig:
     use_prior: bool = True
     no_code: bool = True
     track_bbox_samples: int = 1000   # surface samples for track re-projection
-    optim_solver: str = "adam"       # "lm" is not ported yet (ROADMAP Queue 1 item 7)
+    track_bbox_mode: str = "sampled"  # "sampled" (reference parity) | "exact" (closed form)
+    optim_solver: str = "adam"       # "adam" (reference-exact) | "lm" (LM, Adam fallback)
     optim_iters: int = 200
     optim_samples: int = 1000
     min_views: int = 10
@@ -70,6 +79,7 @@ class PipelineConfig:
     max_objs: int = 64               # mapping-stage object capacity
     max_views: int = 256             # mapping-stage views per object
     max_log_frames: int = 6000       # device observation-log capacity per chunk
+    resize_on_device: bool = False   # accept raw-size frames; resize inside the step
 
 
 class FrameResult(NamedTuple):
@@ -119,27 +129,38 @@ def lift_rows_to_world(det79: torch.Tensor, det_valid: torch.Tensor, T_wc: torch
 
 
 def prepare_track_inputs(store: tracker.TrackStore, T_wc: torch.Tensor, K: torch.Tensor,
-                         img_w: float, img_h: float, n_samples: int = 1000) -> torch.Tensor:
-    """The [T, W, 79] associator input from the track store ("sampled" mode).
+                         img_w: float, img_h: float, n_samples: int = 1000,
+                         mode: str = "sampled") -> torch.Tensor:
+    """The [T, W, 79] associator input from the track store.
 
-    Each track's projected bbox is refreshed from its mean-state ellipsoid
-    (shape logits 0, epsilon 0.9): ``n_samples`` surface points projected
-    into the current camera with a plain z division, normalized and clipped
-    to [-1, 2], and written into every window row; world state is re-encoded
-    in the current camera frame; invalid window rows are -1.  With
-    ``ODAM_FAULT_INJECT=stale_track_bbox`` the rows keep their attach-time
-    bbox instead (test instrumentation).
+    Each track's projected bbox is refreshed from its mean state and written
+    into every window row, normalized and clipped to [-1, 2].
+    ``mode="sampled"``: ``n_samples`` surface points of the mean-state
+    superquadric (shape logits 0, epsilon 0.9) projected into the current
+    camera with a plain z division.  ``mode="exact"``: the closed-form bbox
+    of the dual conic of the mean-state ellipsoid (semi-axes dims / 2), the
+    epsilon-1 surface, with no surface samples at all.  World state is
+    re-encoded in the current camera frame; invalid window rows are -1.
+    With ``ODAM_FAULT_INJECT=stale_track_bbox`` the rows keep their
+    attach-time bbox instead (test instrumentation).
     """
     T_cap, W, _ = store.window.shape
     dev = store.window.device
     t_mean, azi_mean, dims_mean = tracker.mean_state(store)
     T_cw = geo.invert_se3(T_wc)
-    params = sq.SQParams(translate=t_mean, angle=azi_mean, scales=torch.sqrt(dims_mean / 2.0),
-                         shapes=torch.zeros((T_cap, 2), dtype=t_mean.dtype, device=dev))
-    pts_c = geo.transform_points(T_cw, sq.surface_points_world(params, n_samples))
-    pix = torch.einsum("ij,tsj->tsi", K, pts_c)
-    uv = pix[..., :2] / pix[..., 2:]
-    box = torch.cat([uv.amin(dim=1), uv.amax(dim=1)], dim=-1)
+    if mode == "exact":
+        Q = quadric.quadric_matrix(t_mean, azi_mean, (dims_mean / 2.0) ** 2)   # [T, 4, 4]
+        box = quadric.quadric_bbox(Q, K @ T_cw[:3, :])                          # [T, 4]
+    elif mode == "sampled":
+        params = sq.SQParams(translate=t_mean, angle=azi_mean,
+                             scales=torch.sqrt(dims_mean / 2.0),
+                             shapes=torch.zeros((T_cap, 2), dtype=t_mean.dtype, device=dev))
+        pts_c = geo.transform_points(T_cw, sq.surface_points_world(params, n_samples))
+        pix = torch.einsum("ij,tsj->tsi", K, pts_c)
+        uv = pix[..., :2] / pix[..., 2:]
+        box = torch.cat([uv.amin(dim=1), uv.amax(dim=1)], dim=-1)
+    else:
+        raise ValueError(f"unknown track_bbox_mode {mode!r}")
     norm = box_ops.xyxy_scale(img_w, img_h, dev)
     box_n = torch.clamp(box / norm, -1.0, 2.0)
 
@@ -189,7 +210,7 @@ def update_tracks(cfg: PipelineConfig, associator: Associator, store: tracker.Tr
     else:
         with record_function("odam.track_inputs"):
             tracks79 = prepare_track_inputs(store, T_wc, K, img_w, img_h,
-                                            cfg.track_bbox_samples)
+                                            cfg.track_bbox_samples, cfg.track_bbox_mode)
         with record_function("odam.associator"):
             out = associator(tracks79[None], store.active[None], det79[None],
                              det_valid[None], cfg.match_threshold)
@@ -211,23 +232,26 @@ def update_tracks(cfg: PipelineConfig, associator: Associator, store: tracker.Tr
     return store, tracker.log_frame(log, det82, ids)
 
 
-def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
-                    store: tracker.TrackStore, log: tracker.FrameLog, image: torch.Tensor,
-                    frame_id: float, T_wc: torch.Tensor, K: torch.Tensor, img_w: float,
-                    img_h: float, has_tracks: Callable[[], bool]) -> FrameResult:
-    """One step on a normalized float32 [H, W, 3] frame.
-
-    ``has_tracks`` is asked only after the forward, postprocess and row
-    assembly are queued, so a wait it makes overlaps them.  The
-    ``record_function`` ranges ("odam.*") name the step's stages in a
-    torch.profiler trace (``chip_smoke.py --profile`` reads them); they cost
-    about a microsecond each when no profiler runs.
-    """
+def detect_frame(cfg: PipelineConfig, detr: DETR, images: torch.Tensor, K: torch.Tensor,
+                 img_w: float, img_h: float) -> detr_mod.Detections:
+    """DETR forward and postprocess on normalized [B, H, W, 3] frames."""
     with record_function("odam.detr"):
-        outputs = detr(image[None])
+        outputs = detr(images)
     with record_function("odam.postprocess"):
-        dets = detr_mod.postprocess(outputs, img_w, img_h, cfg.detect_threshold, K,
+        return detr_mod.postprocess(outputs, img_w, img_h, cfg.detect_threshold, K,
                                     max_dets=cfg.max_dets)
+
+
+def track_step(cfg: PipelineConfig, associator: Associator, store: tracker.TrackStore,
+               log: tracker.FrameLog, dets: detr_mod.Detections, frame_id: float,
+               T_wc: torch.Tensor, K: torch.Tensor, img_w: float, img_h: float,
+               has_tracks: Callable[[], bool]) -> FrameResult:
+    """One image's detections (batch 1) -> rows -> association -> store update.
+
+    ``has_tracks`` is asked only after the row assembly is queued, so a wait
+    it makes overlaps the work before it.
+    """
+    with record_function("odam.postprocess"):
         det_valid = dets.valid[0]
         det79 = detection_rows_camera(dets, frame_id, img_w, img_h)
         det82 = lift_rows_to_world(det79, det_valid, T_wc, img_w, img_h, cfg.no_code)
@@ -237,23 +261,65 @@ def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
     return FrameResult(store=store, log=log, n_detections=det_valid.sum().to(torch.int32))
 
 
+def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
+                    store: tracker.TrackStore, log: tracker.FrameLog, image: torch.Tensor,
+                    frame_id: float, T_wc: torch.Tensor, K: torch.Tensor, img_w: float,
+                    img_h: float, has_tracks: Callable[[], bool]) -> FrameResult:
+    """One step on a normalized [H, W, 3] frame (in the model's dtype).
+
+    The ``record_function`` ranges ("odam.*") name the step's stages in a
+    torch.profiler trace (``chip_smoke.py --profile`` reads them); they cost
+    about a microsecond each when no profiler runs.
+    """
+    dets = detect_frame(cfg, detr, image[None], K, img_w, img_h)
+    return track_step(cfg, associator, store, log, dets, frame_id, T_wc, K, img_w, img_h,
+                      has_tracks)
+
+
+def device_images(images, device: torch.device, mean: torch.Tensor, std: torch.Tensor,
+                  dtype: torch.dtype, size: tuple[int, int] | None = None) -> torch.Tensor:
+    """Frames to normalized [..., H, W, 3] tensors on ``device`` in ``dtype``.
+
+    uint8 RGB is normalized on the device, a YUV 4:2:0 tuple (Y [H, W], UV
+    [H/2, W/2, 2] uint8) decoded and normalized there, float frames are
+    taken as normalized.  With ``size`` set, a frame of another size is
+    resized (bilinear, antialiased, as ``jax.image.resize``) in float32 and
+    then cast; JAX resizes after the cast, which is one bf16 rounding apart.
+    """
+    if isinstance(images, tuple):
+        y, uv = to_device(images, device)
+        img = yuv420_to_normalized_device(y, uv, mean, std)
+    else:
+        img = to_device(images, device)
+        img = (img.float() / 255.0 - mean) / std if img.dtype == torch.uint8 else img.float()
+    if size is not None and tuple(img.shape[-3:-1]) != tuple(size):
+        img = resize_bilinear_device(img, *size)
+    return img.to(dtype)
+
+
 class OdamPipeline:
     """Host driver around the per-frame step: ``init_sequence(K, img_h,
     img_w)``, then ``process_frame(image, frame_id, T_wc)`` per frame, then
     ``tracks``, ``overflow_report()``, and at scene end ``optim_process`` /
-    ``merge_process``.  Runs on the card unless ``device="cpu"``."""
+    ``merge_process``.  Runs on the card unless ``device="cpu"``.  ``detr``
+    is None only in the offline mode's cached-detection pipeline."""
 
-    def __init__(self, detr: DETR, associator: Associator,
+    def __init__(self, detr: DETR | None, associator: Associator,
                  config: PipelineConfig = PipelineConfig(),
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        self.detr = detr.to(self.device).eval()
+        self.detr = None if detr is None else detr.to(self.device).eval()
         self.associator = associator.to(self.device).eval()
         self.cfg = config
         self.sequence: dict | None = None
         self.host_syncs = 0   # waits for the store-count flag
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
+
+    @property
+    def model_dtype(self) -> torch.dtype:
+        """The detector's compute dtype: frames are decoded straight into it."""
+        return self.detr.config.dtype if self.detr is not None else torch.float32
 
     @property
     def host_syncs_total(self) -> int:
@@ -282,13 +348,9 @@ class OdamPipeline:
         }
 
     def _normalized_image(self, image) -> torch.Tensor:
-        if isinstance(image, tuple):
-            y, uv = to_device(image, self.device)
-            return yuv420_to_normalized_device(y, uv, self._mean, self._std)
-        img = to_device(image, self.device)
-        if img.dtype == torch.uint8:
-            return (img.float() / 255.0 - self._mean) / self._std
-        return img.float()
+        seq = self.sequence
+        size = (int(seq["img_h"]), int(seq["img_w"])) if self.cfg.resize_on_device else None
+        return device_images(image, self.device, self._mean, self._std, self.model_dtype, size)
 
     def _has_tracks(self) -> bool:
         seq = self.sequence
@@ -312,11 +374,8 @@ class OdamPipeline:
         else:
             seq["count_host"] = store.count
 
-    def process_frame(self, image, frame_id: int, T_wc: np.ndarray) -> FrameResult:
-        """Run one frame.  ``image`` is uint8 RGB [H, W, 3], normalized
-        float32 [H, W, 3], or a YUV 4:2:0 tuple (Y [H, W], UV [H/2, W/2, 2])
-        of uint8.  Queues the step without waiting for it, apart from the
-        waits counted in ``host_syncs_total``."""
+    def _record_frame(self, frame_id: int, T_wc: np.ndarray) -> np.ndarray:
+        """The host's per-frame bookkeeping before a step; returns T_wc as float32."""
         seq = self.sequence
         if seq is None:
             raise RuntimeError("call init_sequence first")
@@ -325,12 +384,10 @@ class OdamPipeline:
         seq["T_wcs"].append(T_wc)
         seq["P_cws"].append(seq["K"][:3, :3] @ np.linalg.inv(T_wc)[:3, :])
         seq["tracks_cache"] = None
+        return T_wc
 
-        with torch.no_grad():
-            result = frame_step_body(
-                self.cfg, self.detr, self.associator, seq["store"], seq["log"],
-                self._normalized_image(image), float(frame_id), to_device(T_wc, self.device),
-                seq["K_dev"], seq["img_w"], seq["img_h"], self._has_tracks)
+    def _finish_frame(self, result: FrameResult) -> FrameResult:
+        seq = self.sequence
         seq["store"] = result.store
         seq["log"] = result.log
         self._publish_count(result.store)
@@ -338,6 +395,21 @@ class OdamPipeline:
         if seq["frames_in_log"] >= self.cfg.max_log_frames:
             self._drain_log_chunk()
         return result
+
+    def process_frame(self, image, frame_id: int, T_wc: np.ndarray) -> FrameResult:
+        """Run one frame.  ``image`` is uint8 RGB [H, W, 3], normalized
+        float32 [H, W, 3], or a YUV 4:2:0 tuple (Y [H, W], UV [H/2, W/2, 2])
+        of uint8; with ``resize_on_device`` it may have any size.  Queues the
+        step without waiting for it, apart from the waits counted in
+        ``host_syncs_total``."""
+        T_wc = self._record_frame(frame_id, T_wc)
+        seq = self.sequence
+        with torch.no_grad():
+            result = frame_step_body(
+                self.cfg, self.detr, self.associator, seq["store"], seq["log"],
+                self._normalized_image(image), float(frame_id), to_device(T_wc, self.device),
+                seq["K_dev"], seq["img_w"], seq["img_h"], self._has_tracks)
+        return self._finish_frame(result)
 
     def _drain_log_chunk(self) -> None:
         """Pull the device log into the host history and reset it (triggered
@@ -387,10 +459,8 @@ class OdamPipeline:
         the solve's per-iteration ``loss_log``.
         """
         seq, cfg, dev = self.sequence, self.cfg, self.device
-        if cfg.optim_solver != "adam":
-            raise NotImplementedError(
-                f"optim_solver={cfg.optim_solver!r} is not ported yet (ROADMAP Queue 1 item 7: "
-                "mapping/lm_solver.py); use 'adam'")
+        if cfg.optim_solver not in ("adam", "lm"):
+            raise ValueError(f"unknown optim_solver {cfg.optim_solver!r}: 'adam' or 'lm'")
         sc = constraints.build_scene_constraints(
             tracks, np.asarray(seq["usable_frames"]), np.asarray(seq["P_cws"]),
             seq["img_h"], seq["img_w"], cfg.max_objs, cfg.max_views, cfg.min_views,
@@ -401,11 +471,19 @@ class OdamPipeline:
 
         init = sq.init_params(on_dev(sc.init_translate), on_dev(sc.init_angle),
                               on_dev(sc.init_dims), cfg.representation)
-        res = optimizer.optimize_superquadrics(
-            init, on_dev(sc.boxes), on_dev(sc.box_mask), on_dev(sc.view_mask), on_dev(sc.P_cw),
-            on_dev(sc.optimize_mask), on_dev(prior.prior_invcov_for_classes(sc.obj_class)),
-            n_iters=cfg.optim_iters, n_samples=cfg.optim_samples,
-            representation=cfg.representation, use_prior=cfg.use_prior)
+        solver_args = (init, on_dev(sc.boxes), on_dev(sc.box_mask), on_dev(sc.view_mask),
+                       on_dev(sc.P_cw), on_dev(sc.optimize_mask),
+                       on_dev(prior.prior_invcov_for_classes(sc.obj_class)))
+        if cfg.optim_solver == "lm":
+            # LM for the objects inside its envelope, Adam for the rest
+            res = lm_solver.optimize_superquadrics_auto(
+                *solver_args, n_iters=min(cfg.optim_iters, 40), n_samples=cfg.optim_samples,
+                adam_iters=cfg.optim_iters, representation=cfg.representation,
+                use_prior=cfg.use_prior)
+        else:
+            res = optimizer.optimize_superquadrics(
+                *solver_args, n_iters=cfg.optim_iters, n_samples=cfg.optim_samples,
+                representation=cfg.representation, use_prior=cfg.use_prior)
         # the host's first read waits for the solve; the rest are copies
         host = [t.cpu().numpy() for t in (res.corners, res.corners_detector, res.loss_log,
                                           *res.params)]
@@ -416,6 +494,8 @@ class OdamPipeline:
         inv = {int(t): s for s, t in enumerate(order)}
         out = {"tracks": [], "bboxes_qc": [], "bboxes_dl": [], "quadrics": [],
                "loss_log": loss_log}
+        if res.fallback is not None:
+            out["n_fallback"] = int(res.fallback.sum())
         for t_idx in range(len(tracks)):
             if t_idx not in inv or inv[t_idx] >= n_objs:
                 continue
@@ -430,3 +510,65 @@ class OdamPipeline:
         """Fuse fragmented tracks by the overlap of their optimized boxes."""
         return merge.merge_tracks(data["tracks"], data["bboxes_qc"],
                                   np.asarray(self.sequence["usable_frames"]))
+
+    # ---------------------------------------------------------- checkpoints
+    def save_sequence_state(self, path: str) -> None:
+        """Checkpoint the sequence mid-scene (track store, observation log and
+        host metadata) as a pickle of numpy arrays and plain containers, in
+        the JAX package's layout, so that a crashed run resumes mid-sequence."""
+        seq = self.sequence
+        state = {
+            "K": seq["K"],
+            "img_h": seq["img_h"],
+            "img_w": seq["img_w"],
+            "store": tuple(t.cpu().numpy() for t in seq["store"]),
+            "log": tuple(t.cpu().numpy() for t in seq["log"]),
+            "usable_frames": seq["usable_frames"],
+            "T_wcs": seq["T_wcs"],
+            "P_cws": seq["P_cws"],
+            "history": seq["history"],
+            "frames_in_log": seq["frames_in_log"],
+        }
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    def restore_sequence_state(self, path: str) -> None:
+        """Resume a sequence from ``save_sequence_state``'s pickle, the port's
+        or the JAX package's (a pickle runs code as it loads: restore only
+        files you trust).  The host's store-count flag is rebuilt from the
+        restored store, so the next frame takes the right branch."""
+        with open(path, "rb") as f:
+            state = _StateUnpickler(f).load()
+        self.init_sequence(state["K"], state["img_h"], state["img_w"])
+        seq, dev = self.sequence, self.device
+
+        def on_dev(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        seq["store"] = tracker.TrackStore(*[on_dev(a) for a in state["store"]])
+        seq["log"] = tracker.FrameLog(*[on_dev(a) for a in state["log"]])
+        seq["usable_frames"] = list(state["usable_frames"])
+        seq["T_wcs"] = list(state["T_wcs"])
+        seq["P_cws"] = list(state["P_cws"])
+        seq["history"] = dict(state.get("history", {}))
+        seq["frames_in_log"] = int(state.get("frames_in_log", len(seq["usable_frames"])))
+        seq["has_tracks"] = int(seq["store"].count) > 0
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Reads a sequence state of either package: the JAX package's pickled
+    TrackStore and FrameLog (NamedTuples of numpy arrays) load as plain
+    tuples, so no JAX module is imported."""
+
+    def find_class(self, module, name):
+        if module == "odam_tpu.runtime.tracker" and name in ("TrackStore", "FrameLog"):
+            return _Fields
+        return super().find_class(module, name)
+
+
+class _Fields(tuple):
+    """Stands in for a pickled NamedTuple of the JAX package: pickle rebuilds
+    a NamedTuple by calling its class with the field values in order."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)

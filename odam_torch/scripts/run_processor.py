@@ -6,15 +6,21 @@
 Counterpart of ``scripts/run_processor.py`` with the same flags, defaults
 and output: per scene, a pickle ``{tracks, bboxes_qc, bboxes_dl, quadrics}``
 of numpy arrays (``quadrics``: SQParams of numpy arrays) at
-``<out_dir>/<scene>/<scene>``.  It runs the online mode: the per-frame step,
-then ``optim_process``, ``merge_process`` and ``optim_process`` again.
+``<out_dir>/<scene>/<scene>``.  The online mode runs the per-frame step,
+then ``optim_process``, ``merge_process`` and ``optim_process`` again;
+``--offline`` detects in batches of ``--detect_batch`` frames first and
+then tracks over the cached detections.  ``--profile fast`` selects the
+greedy decode and the closed-form track boxes, ``--solver lm`` the LM
+mapping solve with its Adam fallback, ``--device_resize`` ships raw uint8
+frames and resizes them on the device.
 
 It runs on the card unless ``--device cpu``.  ``--dtype`` defaults to
-float32 (bf16 models are not ported yet), and float32 means full float32 on
-the card: TF32 is turned off for matmuls and cuDNN convolutions.  The
-attention kernels always run on the card, so ``--use_pallas`` has no
-counterpart.  Flags that select a path the port does not have yet exit with
-code 2 and name their ROADMAP item.
+bfloat16, as the JAX CLI does: the models compute in bf16 with float32
+parameters, and everything after them (postprocess, association scores,
+Sinkhorn, tracking, mapping) runs in float32.  TF32 is off in both dtypes,
+so float32 stays float32 on the card.  The attention kernels always run on
+the card, so ``--use_pallas`` has no counterpart.  ``--scene_parallel``
+exits with code 2 and names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -32,15 +38,10 @@ from .. import config as config_mod
 from .. import resolve_device
 from ..data import loader, scannet, transforms
 
-# flag value -> the ROADMAP item that ports it
+# flag -> the ROADMAP item that ports it
 UNPORTED = {
-    "offline": "--offline needs runtime/offline.py (ROADMAP Queue 1 item 8)",
-    "scene_parallel": "--scene_parallel needs runtime/scene_parallel.py (ROADMAP Queue 1 item 9)",
-    "solver_lm": "--solver lm needs mapping/lm_solver.py (ROADMAP Queue 1 item 7)",
-    "device_resize": "--device_resize needs the on-device resize (ROADMAP Queue 1 item 6)",
-    "track_bbox_exact": "--track_bbox exact (implied by --profile fast) needs the closed-form "
-                        "quadric bbox, mapping/quadric.py (ROADMAP Queue 1 item 6)",
-    "bfloat16": "--dtype bfloat16 needs bf16 models (ROADMAP Queue 1 item 3)",
+    "scene_parallel": "--scene_parallel needs runtime/scene_parallel.py and parallel/mesh.py "
+                      "(ROADMAP Queue 1 items 9 and 11)",
 }
 
 
@@ -67,27 +68,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sequences", default=None,
                     help="file with one scene id per line (default: all scenes)")
     ap.add_argument("--detector_ckpt", default="./experiments/detector.pth",
-                    help="Flax tree as .npz (tests/test_torch_checkpoints.py writes them); "
+                    help="the reference's .pth (unpickled: load only trusted files), or a "
+                         "Flax tree as .npz (tests/test_torch_checkpoints.py writes them); "
                          "a missing file means seeded weights")
     ap.add_argument("--associator_ckpt", default="./experiments/associator.pth",
                     help="as --detector_ckpt")
-    ap.add_argument("--dtype", default="float32", choices=["bfloat16", "float32"],
-                    help="float32 (the default here; bfloat16 models are not ported yet, "
-                         "ROADMAP Queue 1 item 3)")
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                    help="the models' compute dtype (parameters stay float32)")
     ap.add_argument("--max_frames", default=None, type=int)
     ap.add_argument("--resume", action="store_true",
                     help="skip scenes whose output already exists")
     ap.add_argument("--offline", action="store_true",
-                    help="batched-ahead detection + streamed association (not ported yet)")
+                    help="batched-ahead detection + streamed association")
     ap.add_argument("--detect_batch", type=int, default=8)
     ap.add_argument("--device_resize", action="store_true",
-                    help="ship raw uint8 frames and resize on the device (not ported yet)")
+                    help="ship raw uint8 frames and resize+normalize on the device")
     ap.add_argument("--prefetch_workers", type=int, default=2)
     ap.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="parity: exact Hungarian + sampled track projection; fast: greedy "
-                         "decode + closed-form projection (not ported yet)")
+                         "decode + closed-form projection")
     ap.add_argument("--solver", choices=["adam", "lm"], default="adam",
-                    help="mapping solver: adam (lm is not ported yet)")
+                    help="mapping solver: adam (reference-exact) or lm (LM with automatic "
+                         "Adam fallback)")
     ap.add_argument("--decode", choices=["profile", "exact", "greedy"], default="profile",
                     help="association decode (overrides --profile)")
     ap.add_argument("--track_bbox", choices=["profile", "sampled", "exact"], default="profile",
@@ -105,53 +107,64 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard", default=None,
                     help="'i/n': process scenes i, i+n, i+2n, ...")
     ap.add_argument("--scene_parallel", type=int, default=0,
-                    help="one scene per device (not ported yet)")
+                    help="one scene per device (not ported yet: exits with code 2)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     return ap
 
 
-def unported(args, track_bbox: str) -> list[str]:
+def unported(args) -> list[str]:
     """The ROADMAP messages of every selected path the port does not have."""
-    picked = {"offline": args.offline, "scene_parallel": bool(args.scene_parallel),
-              "solver_lm": args.solver == "lm", "device_resize": args.device_resize,
-              "track_bbox_exact": track_bbox == "exact", "bfloat16": args.dtype == "bfloat16"}
+    picked = {"scene_parallel": bool(args.scene_parallel)}
     return [UNPORTED[k] for k, on in picked.items() if on]
 
 
-def load_weights(path: str, what: str) -> dict | None:
-    """A Flax tree from ``path`` (.npz), or None (seeded init) when there is no
-    such file.  Other formats exit with the ROADMAP item that reads them."""
-    from ..models import convert
+def load_weights(path: str, what: str, from_pth) -> dict | None:
+    """A Flax-layout tree from ``path``, or None (seeded init) when there is
+    no such file: ``.npz`` is read as a Flax tree, any other file as a
+    reference ``.pth`` converted by ``from_pth(state_dict)``."""
+    from ..models import convert, porting
 
-    if path and os.path.isfile(path) and path.endswith(".npz"):
-        print(f"loaded {what} weights from {path}")
-        return convert.load_flax_npz(path)
     if path and os.path.isdir(path):
         sys.exit(f"{what} checkpoint {path} is an orbax directory, which the port does not "
                  "read: convert it to .npz (tests/test_torch_checkpoints.py shows how)")
-    if path and os.path.exists(path):
-        sys.exit(f"{what} checkpoint {path}: reference .pth weights are not ported yet "
-                 "(ROADMAP Queue 1 item 1, odam_tpu/models/porting.py)")
+    if path and os.path.isfile(path):
+        print(f"loaded {what} weights from {path}")
+        if path.endswith(".npz"):
+            return convert.load_flax_npz(path)
+        return from_pth(porting.load_torch_checkpoint(path))
     print(f"WARNING: no {what} checkpoint; using random init", file=sys.stderr)
     return None
 
 
-def build_models(cfg, detector_ckpt: str, associator_ckpt: str, decode: str, device):
+def build_models(cfg, detector_ckpt: str, associator_ckpt: str, decode: str, device,
+                 dtype: torch.dtype = torch.float32):
     from ..models import associator as assoc_mod
     from ..models import detr as detr_mod
+    from ..models import porting
 
-    detr = detr_mod.build_detr(detr_mod.DETRConfig.from_cfg(cfg),
-                               flax_params=load_weights(detector_ckpt, "detector"),
-                               device=device)
-    assoc = assoc_mod.build_associator(
-        dataclasses.replace(assoc_mod.AssociatorConfig.from_cfg(cfg), decode=decode),
-        flax_params=load_weights(associator_ckpt, "associator"), device=device)
+    dcfg = detr_mod.DETRConfig.from_cfg(cfg, dtype=dtype)
+    acfg = dataclasses.replace(assoc_mod.AssociatorConfig.from_cfg(cfg, dtype=dtype),
+                               decode=decode)
+    detr = detr_mod.build_detr(dcfg, device=device, flax_params=load_weights(
+        detector_ckpt, "detector",
+        lambda sd: porting.convert_detr(sd, enc_layers=dcfg.enc_layers,
+                                        dec_layers=dcfg.dec_layers)))
+    assoc = assoc_mod.build_associator(acfg, device=device, flax_params=load_weights(
+        associator_ckpt, "associator",
+        lambda sd: porting.convert_associator(sd, d_model=acfg.descriptor_dim,
+                                              num_heads=acfg.num_heads,
+                                              n_gnn=len(acfg.gnn_layers),
+                                              n_fuser=len(acfg.self_gnn_layers))))
     return detr, assoc
 
 
-def run_scene(pipe, index, seq_id: str, args) -> tuple[dict, int, int]:
-    """Frames -> optim -> merge -> optim for one scene: (result, frames, tracks)."""
+def run_scene(pipe, index, seq_id: str, args, detector=None) -> tuple[dict, int, int]:
+    """One scene, frames to the final solve: (result, frames, tracks).
+
+    Online: the per-frame step, then optim -> merge -> optim.  Offline
+    (``detector`` given, ``pipe`` a CachedDetectionPipeline): every usable
+    frame is loaded, detected in batches, then tracked and mapped."""
     from PIL import Image
 
     K = scannet.read_intrinsic(index.intrinsic_path(seq_id))[:3, :3]
@@ -165,12 +178,27 @@ def run_scene(pipe, index, seq_id: str, args) -> tuple[dict, int, int]:
     K_scaled = K.copy()
     K_scaled[0] *= iw / first.shape[1]
     K_scaled[1] *= ih / first.shape[0]
-    pipe.init_sequence(K_scaled, ih, iw)
 
-    frame_iter = loader.scene_frame_loader(
-        index, seq_id, frames, lambda rgb: transforms.preprocess_image(rgb, ih, iw),
-        num_workers=args.prefetch_workers)
+    if args.device_resize:
+        preprocess = None         # raw uint8; resize and normalize in the step
+    else:
+        preprocess = lambda rgb: transforms.preprocess_image(rgb, ih, iw)  # noqa: E731
+    frame_iter = loader.scene_frame_loader(index, seq_id, frames, preprocess,
+                                           num_workers=args.prefetch_workers)
     usable = (item for item in frame_iter if not np.isnan(item[2]).any())  # NaN poses skipped
+    if detector is not None:
+        from ..runtime import offline
+
+        images, fids, poses = [], [], []
+        for fid, img, T_cw in usable:
+            images.append(img)
+            fids.append(fid)
+            poses.append(axis_align @ np.linalg.inv(T_cw))
+        out = offline.run_scene_offline(detector, pipe, images, fids, poses, K_scaled,
+                                        ih, iw)
+        return out, len(fids), len(out["tracks"])
+
+    pipe.init_sequence(K_scaled, ih, iw)
     n_frames = 0
     for fid, img, T_cw in loader.device_prefetch(usable, pipe.device):
         pipe.process_frame(img, fid, axis_align @ np.linalg.inv(T_cw))
@@ -187,26 +215,32 @@ def main(argv: list[str] | None = None) -> int:
     decode = args.decode if args.decode != "profile" else ("greedy" if fast else "exact")
     track_bbox = args.track_bbox if args.track_bbox != "profile" else (
         "exact" if fast else "sampled")
-    missing = unported(args, track_bbox)
+    missing = unported(args)
     if missing:
         print("not ported yet:\n  " + "\n  ".join(missing), file=sys.stderr)
         return 2
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # float32 means float32: cuDNN runs convolutions in TF32 by default
+        # float32 means float32 in both dtypes (the stages after the models
+        # are float32): cuDNN runs convolutions in TF32 by default
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
+    from ..runtime import offline
     from ..runtime import processor as proc_mod
 
     cfg = config_mod.merge_cfg([args.config_path])
-    detr, assoc = build_models(cfg, args.detector_ckpt, args.associator_ckpt, decode, device)
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
+    detr, assoc = build_models(cfg, args.detector_ckpt, args.associator_ckpt, decode, device,
+                               dtype)
     pcfg = proc_mod.PipelineConfig(
         detect_threshold=args.detect_threshold,
         score_threshold=args.attach_threshold,
         representation=args.representation,
         use_prior=args.use_prior,
         no_code=args.no_code,
+        resize_on_device=args.device_resize,
+        track_bbox_mode=track_bbox,
         optim_solver=args.solver,
         min_views=args.min_views,
         robust_init=args.robust_init,
@@ -214,7 +248,13 @@ def main(argv: list[str] | None = None) -> int:
         max_views=args.max_views,
         window=args.window,
     )
-    pipe = proc_mod.OdamPipeline(detr, assoc, pcfg, device=device)
+    detector = None
+    if args.offline:
+        detector = offline.BatchedDetector(detr, pcfg, batch_size=args.detect_batch,
+                                           device=device)
+        pipe = offline.CachedDetectionPipeline(assoc, pcfg, device=device)
+    else:
+        pipe = proc_mod.OdamPipeline(detr, assoc, pcfg, device=device)
 
     sequences = None
     if args.sequences:
@@ -236,7 +276,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"processing: {seq_id}")
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.time()
-        out, n_frames, n_tracks = run_scene(pipe, index, seq_id, args)
+        out, n_frames, n_tracks = run_scene(pipe, index, seq_id, args, detector)
         fps = n_frames / max(time.time() - t0, 1e-6)
         print(f"  {n_frames} frames, {fps:.1f} fps, {n_tracks} tracks")
         with open(out_path, "wb") as f:

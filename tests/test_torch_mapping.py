@@ -149,12 +149,20 @@ def test_config_and_model_configs_match(path):
     assert tc == jc
     over = {"dataset": {"img_h": "100"}, "aux_loss": "false", "extra": 1}
     assert t_config.merge_cfg([path, over]) == j_config.merge_cfg([path, over])
-    td, jd = t_detr.DETRConfig.from_cfg(tc), j_detr.DETRConfig.from_cfg(jc)
-    for f in td.__dataclass_fields__:
-        assert getattr(td, f) == getattr(jd, f), f
-    ta, ja = t_assoc.AssociatorConfig.from_cfg(tc), j_assoc.AssociatorConfig.from_cfg(jc)
-    for f in ta.__dataclass_fields__:
-        assert getattr(ta, f) == getattr(ja, f), f
+    def same(t, j, f):
+        if f == "dtype":        # a torch dtype against a JAX one, by name
+            return str(t).replace("torch.", "") == np.dtype(j).name
+        return t == j
+
+    for dtype in ("float32", "bfloat16"):
+        td = t_detr.DETRConfig.from_cfg(tc, dtype=getattr(torch, dtype))
+        jd = j_detr.DETRConfig.from_cfg(jc, dtype=getattr(jnp, dtype))
+        for f in td.__dataclass_fields__:
+            assert same(getattr(td, f), getattr(jd, f), f), f
+        ta = t_assoc.AssociatorConfig.from_cfg(tc, dtype=getattr(torch, dtype))
+        ja = j_assoc.AssociatorConfig.from_cfg(jc, dtype=getattr(jnp, dtype))
+        for f in ta.__dataclass_fields__:
+            assert same(getattr(ta, f), getattr(ja, f), f), f
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         t_detr.DETRConfig.from_cfg({**tc, "pre_norm": True})
 
@@ -588,10 +596,11 @@ def test_optim_and_merge_process_match(robust_init):
 
 
 def test_unported_solver_raises():
-    _, tpipe = _pipelines(optim_solver="lm")
+    """Both of JAX's solvers are ported; any other name is refused."""
+    _, tpipe = _pipelines(optim_solver="newton")
     tracks, seq, _ = _synthetic_tracks(np.random.default_rng(7), n_frames=12)
     tpipe.sequence = seq
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="'adam' or 'lm'"):
         tpipe.optim_process(tracks)
 
 
