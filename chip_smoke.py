@@ -50,7 +50,19 @@ Phases, each printed as one JSON line on stdout:
     (configs/detr_scan_net.yaml, seeded weights) on 4 frames of one
     committed scene resized to 800x800: f32 online; ``--profile fast
     --device_resize`` in bf16; ``--offline --detect_batch 4 --solver lm``
-    in bf16; the kernel launches of every frame checked, with their dtype.
+    in bf16; the kernel launches of every frame checked, with their dtype;
+12. train_detector: the detector's train step at full width on the plain
+    attention path: one f32 step card against CPU (loss within 1e-4, each
+    leaf's gradient within 1e-3), then 10 bf16 steps at batch 8, 512x672
+    on one synthetic batch: step time, images/s, peak memory, the loss
+    falling, one host sync a step (the matcher's copy), frozen leaves
+    bit-equal, no attention kernel launched, and a profile of two steps
+    (host- or device-bound);
+13. train_assoc: the same for the associator at its defaults (20 steps,
+    batch 8, no host sync);
+14. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
+    --synthetic --steps 3`` on the card, their checkpoints through
+    ``run_processor.build_models`` and a 2-frame ``run_processor`` run.
 
 Then the kernel table with the launch counts of every path, the card's name and power limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
@@ -59,6 +71,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -1290,6 +1303,398 @@ def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device
     return report, counts
 
 
+# ----------------------------------------------------------------- training
+
+TRAIN_CONFIG = os.path.join("configs", "detr_scan_net.yaml")
+TRAIN_CHECK = (2, 256, 320)        # the card-vs-CPU f32 step: batch, height, width
+TRAIN_SHAPE = (8, 512, 672)        # train_detector's defaults
+TRAIN_STEPS = {"train_detector": 10, "train_assoc": 20}
+TRAIN_LOSS_RTOL = 1e-4             # card vs CPU, one f32 step with TF32 off
+# Each leaf's f32 gradient, relative norm.  The detector's is held to a
+# float64 CPU step, with the card's convolutions PyTorch's own: its ResNet
+# weight gradients cancel over the image, so the CPU's f32 is 5.7e-4 from
+# float64 there, the card's 5.8e-4 with PyTorch's convolutions and 1.01e-3
+# with cuDNN's f32 ones (TF32 off; deterministic or not).  The cuDNN step,
+# the one training takes, is held by its loss and its errors reported.
+TRAIN_GRAD_RTOL = 1e-3
+# A leaf whose CPU gradient is below this share of the global norm has no
+# gradient but for rounding (softmax ignores a shift common to all keys, so
+# no key bias gets one; the first decoder layer's self-attention sees equal
+# values for all keys): its card gradient must be as small.
+GRAD_NOISE_SHARE = 1e-6
+HOST_BOUND_IDLE = 0.5              # device idle above this share of a step: host-bound
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _grad_errors(model, ref) -> dict:
+    """Each trained leaf's gradient in ``model`` against ``ref``'s (same
+    names), in relative norm: the worst leaf and the count of leaves whose
+    reference gradient is rounding noise (GRAD_NOISE_SHARE), where
+    ``model``'s must be as small."""
+    g_ref = {k: p.grad.double() for k, p in ref.named_parameters() if p.grad is not None}
+    g = {k: p.grad.cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+    if set(g_ref) != set(g) or not g_ref:
+        raise AssertionError("the two models trained different leaves")
+    scale = float(torch.sqrt(sum((x ** 2).sum() for x in g_ref.values())))
+    worst, worst_key, noise = 0.0, None, 0
+    for k, r in g_ref.items():
+        ref_norm, err = float(r.norm()), float((g[k] - r).norm())
+        if ref_norm <= GRAD_NOISE_SHARE * scale:
+            if float(g[k].norm()) > GRAD_NOISE_SHARE * scale:
+                raise AssertionError(f"{k}: a rounding-noise gradient in the reference, "
+                                     f"{float(g[k].norm()):.3e} here")
+            noise += 1
+        elif err / ref_norm > worst:
+            worst, worst_key = err / ref_norm, k
+    return {"leaves": len(g_ref), "max_rel_err": worst, "worst_leaf": worst_key,
+            "noise_leaves": noise, "global_norm": scale}
+
+
+def _as_float64(model):
+    """The model in float64 throughout (parameters, buffers and every
+    layer's compute dtype): a reference for float32 gradients."""
+    model = model.double()
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    return model
+
+
+def _reset_peak(dev) -> int:
+    """Free what earlier phases left and reset the peak-memory count; the
+    bytes still allocated (the model, its optimizer state and the batch),
+    which the step's peak is reported above."""
+    if torch.device(dev).type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _timed_steps(step, n: int, dev) -> tuple[list[float], list[float]]:
+    """Host ms of each of ``n`` steps, each ending in a synchronize, and
+    each step's loss (read after the timing)."""
+    ms, losses = [], []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(step())
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, [float(x) for x in losses]
+
+
+def train_profile(step, n: int = 2) -> dict:
+    """torch.profiler over ``n`` steps: wall and device-busy time a step,
+    kernel launches, the top kernels, and whether the host or the device
+    bounds the step (host when the device idles over HOST_BOUND_IDLE)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": n, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": idle, "bound_by": "host" if idle > HOST_BOUND_IDLE else "device",
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+            "top_kernels": [{"name": e.key[:80], "ms_per_step": e.self_device_time_total / n / 1e3,
+                             "calls_per_step": e.count / n} for e in top]}
+
+
+def _train_report(phase, model, state, before, ms, losses, syncs, samples, peak, resident,
+                  launches, dev, frozen_label) -> dict:
+    """The fields both train phases report, and their checks: the loss
+    falls, frozen leaves are bit-equal, every leaf that gets a gradient
+    (above GRAD_NOISE_SHARE of the last step's global norm) moved, no
+    attention kernel launched.  (A leaf with no gradient, such as the first
+    decoder layer's self-attention value kernel, whose input is all zeros,
+    moves by weight decay alone, lr x wd of itself: below float32's
+    resolution at lr 1e-4.)"""
+    from odam_torch.models import convert
+
+    grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    scale = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())))
+    frozen, moved, no_grad, still = 0, 0, 0, []
+    for key, t in model.state_dict().items():
+        if frozen_label(convert.flax_path(model, key)) == "frozen":
+            frozen += 1
+            if not torch.equal(t, before[key]):
+                raise AssertionError(f"{phase}: frozen {key} moved")
+        elif float(grads[key].norm()) <= GRAD_NOISE_SHARE * scale:
+            no_grad += 1
+        elif torch.equal(t, before[key]):
+            still.append(key)
+        else:
+            moved += 1
+    if still:
+        raise AssertionError(f"{phase}: trained leaves did not move: {still[:4]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: attention kernels launched {launches}")
+    median = float(np.median(ms[1:]))
+    return {"phase": phase, "steps": len(ms), "step_ms": ms, "step_median_ms": median,
+            "samples_per_s": samples / median * 1e3,
+            "max_memory_allocated": None if peak is None else peak + resident,
+            "step_peak_memory_bytes": peak, "resident_bytes": resident,
+            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+            "host_syncs_per_step": syncs / len(ms), "frozen_leaves_bit_equal": frozen,
+            "trained_leaves_moved": moved, "trained_leaves_without_gradient": no_grad,
+            "attention_launches": launches, "step_counter": state.step, "device": str(dev)}
+
+
+def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAPE,
+                       n_steps: int = TRAIN_STEPS["train_detector"]) -> tuple[dict, dict]:
+    """The detector's train step at full width (configs/detr_scan_net.yaml:
+    ResNet-50, hidden 256, 8 heads, 6+6 layers, 100 queries, aux losses),
+    on the plain attention path as JAX trains.
+
+    First one f32 step (TF32 off) on the card and on the CPU from the same
+    weights and batch (``check``), the card under the CPU's match, with and
+    without cuDNN: the losses within TRAIN_LOSS_RTOL, each leaf's gradient
+    without cuDNN within TRAIN_GRAD_RTOL of a float64 CPU step's; dropout
+    is 0 there, since each device draws its masks from its own generator.
+    Then ``n_steps`` bf16 steps at ``shape`` on one fixed synthetic batch at
+    the config's dropout, timed on the host clock, and two more profiled."""
+    import dataclasses
+
+    from odam_torch import config as config_mod
+    from odam_torch.models import criterion, detr, matcher, training
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts.train_detector import synthetic_batches
+
+    dev = torch.device(device)
+    cfg = config_mod.merge_cfg([TRAIN_CONFIG])
+    dcfg = detr.DETRConfig.from_cfg(cfg, use_kernels=False)
+    tcfg = training.DetrTrainConfig(
+        lr=float(cfg.get("lr", 1e-4)), lr_backbone=float(cfg.get("lr_backbone", 1e-5)),
+        criterion=criterion.CriterionConfig(num_classes=dcfg.num_classes,
+                                            eos_coef=float(cfg.get("eos_coef", 0.1))))
+    ca.reset_counts()
+
+    def batch(b, h, w, on):
+        images, targets = next(synthetic_batches(b, h, w, dcfg.num_classes, 8,
+                                                 np.random.default_rng(0)))
+        return (torch.from_numpy(images).to(on),
+                criterion.Targets(*[torch.from_numpy(x).to(on) for x in targets]))
+
+    class RecordingMatcher(matcher.HungarianMatcher):
+        def __call__(self, *args):
+            self.last = super().__call__(*args)
+            return self.last
+
+    # the CPU's f32 step first (its match is every side's), a float64 CPU
+    # reference, then the card with PyTorch's own convolutions and with
+    # cuDNN's (which training uses)
+    f32 = dataclasses.replace(dcfg, dropout=0.0)
+    sides = (("cpu", "cpu", True), ("f64", "cpu", True), ("card", dev, False),
+             ("card_cudnn", dev, True))
+    models, check_loss, cpu_match = {}, {}, RecordingMatcher(tcfg.criterion.matcher)
+    for side, on, cudnn in sides:
+        model = detr.build_detr(f32, seed=0, device=on)
+        if side == "f64":
+            model = _as_float64(model)
+        state = training.init_train_state(model, training.make_detr_optimizer(model, tcfg))
+        step = training.make_detr_train_step(tcfg, matcher=cpu_match)
+        images, targets = batch(*check, on)
+        if side == "f64":
+            images = images.double()
+            targets = criterion.Targets(*[t.double() if t.is_floating_point() else t
+                                          for t in targets])
+        matches = None if side == "cpu" else [m.to(on) for m in cpu_match.last]
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            check_loss[side] = float(step(state, images, targets, matches=matches)["total"])
+        finally:
+            torch.backends.cudnn.enabled = True
+        models[side] = model
+    cpu_loss, card_loss = check_loss["cpu"], check_loss["card"]
+    loss_err = {side: abs(check_loss[side] - cpu_loss) / abs(cpu_loss)
+                for side in ("card", "card_cudnn")}
+    if not max(loss_err.values()) <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_detector: losses {check_loss}")
+    grads = {f"{a}_vs_{b}": _grad_errors(models[a], models[b])
+             for a, b in (("card", "f64"), ("cpu", "f64"), ("card_cudnn", "f64"),
+                          ("card", "cpu"), ("card_cudnn", "cpu"))}
+    if grads["card_vs_f64"]["max_rel_err"] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train_detector: card gradients {grads['card_vs_f64']}")
+    del models
+
+    model = detr.build_detr(dataclasses.replace(dcfg, dtype=torch.bfloat16), seed=0,
+                            device=dev)
+    state = training.init_train_state(model, training.make_detr_optimizer(model, tcfg))
+    step = training.make_detr_train_step(tcfg)
+    images, targets = batch(*shape, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    ca.reset_counts()
+    resident = _reset_peak(dev)
+    ms, losses = _timed_steps(lambda: step(state, images, targets)["total"], n_steps, dev)
+    peak = torch.cuda.max_memory_allocated() - resident if dev.type == "cuda" else None
+    launches = dict(ca.LAUNCHES)
+    report = _train_report("train_detector", model, state, before, ms, losses,
+                           step.matcher.host_syncs, shape[0], peak, resident, launches,
+                           dev, training.detr_label)
+    if dev.type == "cuda" and step.matcher.host_syncs != n_steps:
+        raise AssertionError(f"train_detector: {step.matcher.host_syncs} host syncs "
+                             f"in {n_steps} steps")
+    report.update(dtype="bfloat16", batch=list(shape), dropout=dcfg.dropout,
+                  check={"batch": list(check), "dtype": "float32", "dropout": 0.0,
+                         "losses": check_loss, "loss_rel_err_vs_cpu": loss_err,
+                         "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
+                                 "grad_rtol_card_vs_f64": TRAIN_GRAD_RTOL},
+                         "grads": grads},
+                  trained_groups={name: len(ps) for name, (_, ps) in state.opt.groups.items()})
+    if dev.type == "cuda":
+        report["profile"] = train_profile(lambda: step(state, images, targets))
+        if any(ca.LAUNCHES.values()):
+            raise AssertionError(f"train_detector: attention kernels launched {ca.LAUNCHES}")
+    return report, launches
+
+
+def train_assoc_run(device: str = "cuda", n_steps: int = TRAIN_STEPS["train_assoc"],
+                    batch_size: int = 8) -> tuple[dict, dict]:
+    """The associator's train step at its default config (256-d, 2 fuser and
+    8 GNN layers, 100 Sinkhorn iterations) on train_associator's samples
+    (max_tracks 32, max_dets 16, window 50, batch 8): one step on the card
+    and on the CPU from the same weights and batch, then ``n_steps`` on one
+    fixed batch, and two more profiled."""
+    from odam_torch import config as config_mod
+    from odam_torch.data import datasets
+    from odam_torch.models import associator, training
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts.train_associator import BATCH_KEYS, synthetic_scenes
+
+    dev = torch.device(device)
+    cfg = config_mod.merge_cfg([TRAIN_CONFIG])
+    acfg = associator.AssociatorConfig.from_cfg(cfg, use_kernels=False)
+    rng = np.random.default_rng(0)
+    ds = datasets.AssociatorDataset(synthetic_scenes(rng), max_tracks=32, max_dets=16,
+                                    window=50)
+    b = next(ds.batches(batch_size, rng))
+    ca.reset_counts()
+    models, losses = {}, {}
+    for side, on in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = associator.build_associator(acfg, seed=0, device=on)
+        state = training.init_train_state(
+            model, training.make_assoc_optimizer(model, training.AssocTrainConfig()))
+        step = training.make_assoc_train_step()
+        losses[side] = float(step(state, *[torch.from_numpy(b[k]).to(on) for k in BATCH_KEYS]))
+        models[side] = model
+    cpu_loss, card_loss = losses["cpu"], losses["card"]
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_assoc: loss card {card_loss} vs CPU {cpu_loss}")
+    grads = _grad_errors(models["card"], models["cpu"])
+    if grads["max_rel_err"] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train_assoc: card gradients {grads}")
+    del models
+
+    model = associator.build_associator(acfg, seed=0, device=dev)
+    state = training.init_train_state(
+        model, training.make_assoc_optimizer(model, training.AssocTrainConfig()))
+    step = training.make_assoc_train_step()
+    args = [torch.from_numpy(b[k]).to(dev) for k in BATCH_KEYS]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    ca.reset_counts()
+    resident = _reset_peak(dev)
+    ms, losses = _timed_steps(lambda: step(state, *args), n_steps, dev)
+    peak = torch.cuda.max_memory_allocated() - resident if dev.type == "cuda" else None
+    launches = dict(ca.LAUNCHES)
+    report = _train_report("train_assoc", model, state, before, ms, losses, model.host_syncs,
+                           batch_size, peak, resident, launches, dev, lambda path: "main")
+    report.update(dtype="float32", batch=batch_size, samples=len(ds),
+                  check={"dtype": "float32", "loss_cpu": cpu_loss, "loss_card": card_loss,
+                         "loss_rel_err": loss_err, "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
+                                                           "grad_rtol": TRAIN_GRAD_RTOL},
+                         "grads": grads})
+    if dev.type == "cuda":
+        report["profile"] = train_profile(lambda: step(state, *args))
+    return report, launches
+
+
+def train_cli_run(out_root: str = os.path.join("runs", "train_cli"),
+                  device: str = "cuda", extra_det: tuple[str, ...] = (),
+                  extra_assoc: tuple[str, ...] = (), config: str = TRAIN_CONFIG,
+                  short_side: int = 512) -> tuple[dict, dict]:
+    """Both train CLIs as a user runs them (``python -m``, ``--synthetic
+    --steps 3``, the scripts' defaults otherwise), then their ``ckpt_3``
+    directories through ``run_processor.build_models`` and a 2-frame
+    ``run_processor`` run of one committed scene with them (bf16, the
+    kernels on; a 16 x 16 mapping capacity, as the run holds one or two
+    tracks).  The outputs go under ``runs/`` (gitignored): a full-width
+    checkpoint with its optimizer state is about 0.5 GB."""
+    import pickle
+
+    from odam_torch import config as config_mod
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import run_processor
+    from odam_torch.utils import checkpoint
+
+    os.makedirs(out_root, exist_ok=True)
+    ckpts, seconds, cli_losses = {}, {}, {}
+    for name, extra in (("train_detector", extra_det), ("train_associator", extra_assoc)):
+        out_dir = os.path.join(out_root, name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = [sys.executable, "-m", f"odam_torch.scripts.{name}", "--synthetic",
+                "--steps", "3", "--log_every", "1", "--config_path", config,
+                "--out_dir", out_dir, "--device", device, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[1:])} failed:\n{proc.stderr[-3000:]}")
+        ckpts[name] = os.path.join(out_dir, "ckpt_3")
+        if (checkpoint.load_meta(ckpts[name]) or {}).get("step") != 3:
+            raise AssertionError(f"{name}: no complete ckpt_3")
+        with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        key = "total" if name == "train_detector" else "loss"
+        if [r["step"] for r in log] != [1, 2, 3] or not all(np.isfinite(r[key]) for r in log):
+            raise AssertionError(f"{name}: log {log}")
+        cli_losses[name] = [r[key] for r in log]
+    cfg = config_mod.merge_cfg([config])
+    detr_m, assoc_m = run_processor.build_models(cfg, ckpts["train_detector"],
+                                                 ckpts["train_associator"], "exact",
+                                                 torch.device(device))
+    del detr_m, assoc_m
+    split = os.path.join(out_root, "split.txt")
+    with open(split, "w") as f:
+        f.write(CLI_FULL_SCENE + "\n")
+    argv = ["--config_path", config, "--scans_root", os.path.join(SCENE_DATA, "scans"),
+            "--sequences", split, "--detector_ckpt", ckpts["train_detector"],
+            "--associator_ckpt", ckpts["train_associator"], "--short_side", str(short_side),
+            "--max_frames", "2", "--detect_threshold", "0.0", "--attach_threshold", "0.0",
+            "--min_views", "2", "--max_objs", "16", "--max_views", "16",
+            "--out_dir", os.path.join(out_root, "run"),
+            "--device", device]
+    ca.reset_counts()
+    frames, scene_s, run_s = _run_cli(argv)
+    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    with open(os.path.join(out_root, "run", CLI_FULL_SCENE, CLI_FULL_SCENE), "rb") as f:
+        out = pickle.load(f)
+    if len(frames) != 2 or not all(np.isfinite(x).all() for x in out["tracks"]):
+        raise AssertionError(f"train_cli: run_processor gave {len(frames)} frames, "
+                             f"{len(out['tracks'])} tracks")
+    report = {"phase": "train_cli", "cli_seconds": seconds, "cli_losses": cli_losses,
+              "checkpoints": ckpts, "run_processor_frames": len(frames),
+              "run_processor_tracks": len(out["tracks"]), "run_processor_seconds": run_s,
+              "launches": counts}
+    return report, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1350,6 +1755,10 @@ def main() -> int:
                 raise AssertionError(f"{name} was never launched on the {path} path")
     if paths["cli_offline"]["fused_attention"] == 0:
         raise AssertionError("fused_attention was never launched on the cli_offline path")
+    for run in (train_detector_run, train_assoc_run, train_cli_run):
+        report, counts = run()
+        paths[report["phase"]] = counts
+        emit(report)
     for row in kernel_rows:
         main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
         row["launches"] = paths[main_path][row["name"]]

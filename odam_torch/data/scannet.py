@@ -1,5 +1,6 @@
 """ScanNet / Scan2CAD file-format IO (host-side, NumPy only): the scene index,
-the pose, intrinsic and axis-align readers and ``make_M_from_tqs``, copied
+the pose, intrinsic and axis-align readers, ``make_M_from_tqs`` and
+``get_cam_azi``, copied
 from ``odam_tpu/data/scannet.py``.  Pure functions over the standard ScanNet
 scene directory layout:
 
@@ -68,6 +69,12 @@ def make_M_from_tqs(t, q, s) -> np.ndarray:
     S = np.eye(4)
     S[:3, :3] = np.diag(s)
     return T @ R @ S
+
+
+def get_cam_azi(T_wc: np.ndarray) -> float:
+    """Camera azimuth in the world frame, z-up (scannet_utils.py:213-222)."""
+    fwd = T_wc[:3, :3] @ np.array([0.0, 0.0, 1.0])
+    return float(np.arctan2(fwd[1], fwd[0]))
 
 
 class SceneIndex:

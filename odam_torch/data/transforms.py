@@ -1,9 +1,10 @@
 """Inference resize and normalize on the host; YUV 4:2:0 packing on the host,
-decode + normalize on the device.
+decode + normalize on the device; the train-time augmentation on the host.
 
-Counterpart of the inference and transport functions of
-``odam_tpu/data/transforms.py``: shorter side to 800 with a 1333 cap, PIL
-bilinear resize, ImageNet normalization.
+Counterpart of ``odam_tpu/data/transforms.py``: shorter side to 800 with a
+1333 cap, PIL bilinear resize, ImageNet normalization; random flip,
+multi-scale resize and canvas padding for training, driven by a numpy
+``Generator`` as in JAX.
 """
 from __future__ import annotations
 
@@ -123,3 +124,64 @@ def resize_bilinear_device(img: torch.Tensor, out_h: int, out_w: int) -> torch.T
     y = torch.nn.functional.interpolate(x, size=(out_h, out_w), mode="bilinear",
                                         align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1).reshape(lead + (out_h, out_w, C))
+
+
+# ---------------------------------------------------------------------------
+# Training augmentation (numpy, the JAX package's arithmetic)
+# ---------------------------------------------------------------------------
+
+TRAIN_SCALES = (480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800)
+
+
+def hflip_with_targets(img: np.ndarray, objects: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Horizontal flip: box centres and x-offsets mirror (boxes normalized),
+    the azimuth changes sign.  Object rows: [class, cx, cy, w, h, dims(3),
+    off_x, off_y, ..., depth, angle]."""
+    out = np.ascontiguousarray(img[:, ::-1])
+    objects = objects.copy()
+    objects[:, 1] = 1.0 - objects[:, 1]
+    objects[:, 8] = -objects[:, 8]
+    objects[:, -1] = -objects[:, -1]
+    return out, objects
+
+
+def random_resize_train(img: np.ndarray, objects: np.ndarray, rng: np.random.Generator,
+                        scales=TRAIN_SCALES, max_size: int = 1333, pad_multiple: int = 32
+                        ) -> tuple[np.ndarray, np.ndarray, tuple[int, int]]:
+    """Multi-scale resize: a shorter side drawn from ``scales``.  Normalized
+    boxes and offsets are scale-invariant; depth and 3D dims are metric.
+    Returns the resized normalized image, the objects and the size of the
+    image on the padded canvas."""
+    short = int(rng.choice(scales))
+    h, w = img.shape[:2]
+    nh, nw = target_size(h, w, short, max_size)
+    resized = preprocess_image(img, nh, nw)
+    ch = -(-max(s for s in scales) // pad_multiple) * pad_multiple
+    cw = -(-max_size // pad_multiple) * pad_multiple
+    return resized, objects, (min(nh, ch), min(nw, cw))
+
+
+def pad_to_canvas(img: np.ndarray, canvas_h: int, canvas_w: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Top-left placement on a fixed canvas -> (padded image, pixel mask with
+    True = padded)."""
+    h, w = img.shape[:2]
+    out = np.zeros((canvas_h, canvas_w, img.shape[2]), img.dtype)
+    out[:h, :w] = img
+    mask = np.ones((canvas_h, canvas_w), bool)
+    mask[:h, :w] = False
+    return out, mask
+
+
+def train_transform(img: np.ndarray, objects: np.ndarray, rng: np.random.Generator,
+                    canvas: tuple[int, int] = (800, 1344), flip_prob: float = 0.5
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Random flip, multi-scale resize and padding -> (image [Hc, Wc, 3],
+    mask [Hc, Wc], objects).  Boxes and offsets must be normalized already;
+    they refer to the unpadded region, which the mask marks."""
+    if rng.uniform() < flip_prob:
+        img, objects = hflip_with_targets(img, objects)
+    resized, objects, _ = random_resize_train(img, objects, rng)
+    padded, mask = pad_to_canvas(resized, canvas[0], canvas[1])
+    return padded, mask, objects

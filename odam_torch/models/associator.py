@@ -7,7 +7,11 @@ runs over the full window, padded timesteps included.
 
 The exact decode runs on the host (see :mod:`odam_torch.ops.lap`): one
 blocking copy per call of the [B, T+1, N+1] log assignment and both masks,
-counted in ``Associator.host_syncs``.
+counted in ``Associator.host_syncs``.  Training needs no decode:
+:meth:`Associator.assignment` stops at the log assignment, with no host
+copy, and :func:`association_nll` is the loss.  ``use_kernels`` (JAX's
+``use_pallas``) sends the GNN's attention to the CUDA kernels; training
+turns it off.
 
 ``AssociatorConfig.dtype`` is the compute dtype of the encoder, the GNN and
 the final projection, with Flax's semantics (:mod:`.layers`); the time
@@ -44,9 +48,11 @@ class AssociatorConfig:
     num_heads: int = 4
     decode: str = "exact"  # "exact" (Hungarian on the host) | "greedy" (on device)
     dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
+    use_kernels: bool = True       # the attention kernels (JAX: use_pallas)
 
     @classmethod
-    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32) -> "AssociatorConfig":
+    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True) -> "AssociatorConfig":
         """Build from the reference YAML schema (configs/detr_scan_net.yaml)."""
         return cls(
             descriptor_dim=int(cfg.get("descriptor_dim", 256)),
@@ -55,6 +61,7 @@ class AssociatorConfig:
             self_gnn_layers=tuple(cfg.get("self_GNN_layers", ("self", "self"))),
             sinkhorn_iterations=int(cfg.get("sinkhorn_iterations", 100)),
             dtype=dtype,
+            use_kernels=use_kernels,
         )
 
 
@@ -78,9 +85,11 @@ class ChannelMLP(nn.Module):
 class AttentionalPropagation(nn.Module):
     """message = MHA(x, source); returns MLP([x ; message])."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.use_kernels = use_kernels
         self.q_proj = Dense(d_model, d_model, dtype=dtype)
         self.k_proj = Dense(d_model, d_model, dtype=dtype)
         self.v_proj = Dense(d_model, d_model, dtype=dtype)
@@ -89,7 +98,7 @@ class AttentionalPropagation(nn.Module):
 
     def forward(self, x, source, key_padding_mask=None):
         msg = mha_core(self.q_proj(x), self.k_proj(source), self.v_proj(source),
-                       self.num_heads, key_padding_mask)
+                       self.num_heads, key_padding_mask, self.use_kernels)
         return self.mlp(torch.cat([x, self.merge(msg)], dim=-1))
 
 
@@ -110,9 +119,11 @@ class Associator(nn.Module):
             raise ValueError(f"compute dtype {c.dtype} is not float32 or bfloat16")
         self.encoder = ChannelMLP(tuple(c.keypoint_encoder), c.dtype)
         for i, _ in enumerate(c.self_gnn_layers):
-            self.add_module(f"fuser_layer{i}", AttentionalPropagation(D, c.num_heads, c.dtype))
+            self.add_module(f"fuser_layer{i}",
+                            AttentionalPropagation(D, c.num_heads, c.dtype, c.use_kernels))
         for i, _ in enumerate(c.gnn_layers):
-            self.add_module(f"gnn_layer{i}", AttentionalPropagation(D, c.num_heads, c.dtype))
+            self.add_module(f"gnn_layer{i}",
+                            AttentionalPropagation(D, c.num_heads, c.dtype, c.use_kernels))
         self.final_proj = Dense(D, D, dtype=c.dtype)
         self.bin_score = nn.Parameter(torch.ones(()))
         self.host_syncs = 0
@@ -127,6 +138,15 @@ class Associator(nn.Module):
             detections: [B, N, 79] this frame's detections (padded rows = -1).
             det_mask: [B, N] bool validity of detection slots.
         """
+        Z, scores = self.assignment(tracks, track_mask, detections, det_mask)
+        matches = self._decode(Z, track_mask, det_mask, match_threshold)
+        return AssociatorOutput(log_assignment=Z, scores=scores, matches=matches)
+
+    def assignment(self, tracks: torch.Tensor, track_mask: torch.Tensor,
+                   detections: torch.Tensor, det_mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The forward without the decode: (log assignment [B, T+1, N+1], raw
+        scores [B, T, N]), with no host copy."""
         c = self.config
         B, T, W, _ = tracks.shape
         D = c.descriptor_dim
@@ -160,8 +180,7 @@ class Associator(nn.Module):
         Z = sinkhorn.log_optimal_transport(scores, self.bin_score.float(),
                                            iters=c.sinkhorn_iterations,
                                            row_mask=track_mask, col_mask=det_mask)
-        matches = self._decode(Z, track_mask, det_mask, match_threshold)
-        return AssociatorOutput(log_assignment=Z, scores=scores, matches=matches)
+        return Z, scores
 
     def _decode(self, Z, track_mask, det_mask, threshold: float) -> torch.Tensor:
         if self.config.decode == "greedy":
@@ -185,6 +204,20 @@ class Associator(nn.Module):
         if Z.device.type == "cpu":
             return matches
         return matches.pin_memory().to(Z.device, non_blocking=True)
+
+
+def association_nll(Z: torch.Tensor, gt_pairs: torch.Tensor,
+                    pair_valid: torch.Tensor) -> torch.Tensor:
+    """Negative log-likelihood of the ground-truth matches.
+
+    Args:
+        Z: [B, T+1, N+1] log assignment.
+        gt_pairs: [B, P, 2] (track or bin, detection or bin) index pairs.
+        pair_valid: [B, P] bool.
+    """
+    batch = torch.arange(Z.shape[0], device=Z.device)[:, None]
+    picked = Z[batch, gt_pairs[..., 0].long(), gt_pairs[..., 1].long()]      # [B, P]
+    return -(picked * pair_valid).sum()
 
 
 def build_associator(config: AssociatorConfig = AssociatorConfig(), *, flax_params=None,

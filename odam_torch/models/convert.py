@@ -10,6 +10,12 @@ Flax tree's names, so a leaf converts by its path:
 - everything else keeps its name and layout: biases, the four frozen-BN
   leaves, ``query_embed`` and ``bin_score``.
 
+:func:`state_dict_to_flax` is the inverse: a module's state_dict as a Flax
+tree of numpy arrays, which :func:`save_flax_npz` writes in the ``.npz``
+layout that :func:`load_flax_npz` reads and that the JAX package's
+``model.apply`` takes as ``{"params": tree}``.  :func:`flax_path` names a
+state_dict key's Flax leaf.
+
 Attention projections stay separate (q_proj, k_proj, v_proj, out_proj or
 merge) and head-major: both packages split heads the same way, so no
 permutation applies.  The caller passes the tree as nested dicts of numpy
@@ -76,6 +82,49 @@ def load_flax_npz(path: str) -> dict:
                 node = node.setdefault(name, {})
             node[leaf] = npz[key]
     return tree
+
+
+def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
+    """The Flax path of ``module.state_dict()[key]``: the module path, then
+    ``kernel`` for a Dense or Conv weight, ``scale`` for a LayerNorm or
+    GroupNorm weight, else the tensor's own name."""
+    *parents, name = key.split(".")
+    owner = module.get_submodule(".".join(parents))
+    if name == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d)):
+        name = "kernel"
+    elif name == "weight" and isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+        name = "scale"
+    return tuple(parents) + (name,)
+
+
+def state_dict_to_flax(module: nn.Module) -> dict:
+    """The module's state_dict as a Flax tree of float32 numpy arrays (the
+    inverse of :func:`flax_to_state_dict`)."""
+    return tensors_to_flax(module, module.state_dict())
+
+
+def tensors_to_flax(module: nn.Module, tensors: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors keyed and shaped as the module's state_dict entries (its
+    weights, their gradients) -> a Flax tree of float32 numpy arrays:
+    Linear ``weight`` [out, in] -> ``kernel`` [in, out], Conv2d OIHW -> HWIO."""
+    tree: dict = {}
+    for key, t in tensors.items():
+        path = flax_path(module, key)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = arr.copy()             # C order, rank kept
+    return tree
+
+
+def save_flax_npz(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a Flax tree of numpy arrays as ``.npz`` with ``/``-joined paths
+    as keys, the layout :func:`load_flax_npz` reads."""
+    with open(path, "wb") as f:
+        np.savez(f, **{"/".join(p): np.asarray(leaf) for p, leaf in _flatten(tree)})
 
 
 def load_flax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:

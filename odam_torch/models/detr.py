@@ -11,6 +11,9 @@ Public layouts follow the JAX package: images [B, H, W, 3] NHWC.
 ``DETRConfig.dtype`` is the compute dtype, with Flax's semantics
 (:mod:`.layers`): float32 parameters cast at use, bf16 activations and
 heads; ``postprocess`` casts every head to float32 first.
+``DETRConfig.dropout`` acts in ``.train()`` mode only, with masks drawn from
+the forward's ``generator``; ``use_kernels`` (JAX's ``use_pallas``) sends
+the transformer's attention to the CUDA kernels, and training turns it off.
 """
 from __future__ import annotations
 
@@ -39,18 +42,20 @@ class DETRConfig:
     enc_layers: int = 6
     dec_layers: int = 6
     dim_feedforward: int = 2048
+    dropout: float = 0.1           # in .train() mode only
     aux_loss: bool = True
     num_angle_bins: int = 30
     backbone: str = "resnet50"     # "resnet50" | "tiny"
     backbone_stage: int = 4        # feature stage fed to the transformer
     dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
+    use_kernels: bool = True       # the attention kernels (JAX: use_pallas)
 
     @classmethod
-    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32) -> "DETRConfig":
+    def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True) -> "DETRConfig":
         """Build from the reference YAML schema (configs/detr_scan_net.yaml).
 
-        ``dropout`` is read by training only and ignored here.  Options the
-        port does not have yet (pre-norm, dilation, the learned position
+        Options the port does not have yet (pre-norm, dilation, the learned position
         encoding, the s2d/im2col stems; ROADMAP Queue 1 item 3) raise.
         """
         unported = {"pre_norm": False, "dilation": False, "position_embedding": "sine",
@@ -69,10 +74,12 @@ class DETRConfig:
             enc_layers=int(cfg.get("enc_layers", 6)),
             dec_layers=int(cfg.get("dec_layers", 6)),
             dim_feedforward=int(cfg.get("dim_feedforward", 2048)),
+            dropout=float(cfg.get("dropout", 0.1)),
             aux_loss=bool(cfg.get("aux_loss", True)),
             backbone=cfg.get("backbone", "resnet50"),
             backbone_stage=int(cfg.get("backbone_stage", 4)),
             dtype=dtype,
+            use_kernels=use_kernels,
         )
 
 
@@ -112,7 +119,7 @@ class DETR(nn.Module):
         self.input_proj = Conv(self.backbone.channels(c.backbone_stage), D, 1, dtype=dt)
         self.query_embed = nn.Parameter(torch.zeros(c.num_queries, D))
         self.transformer = Transformer(D, c.nheads, c.enc_layers, c.dec_layers,
-                                       c.dim_feedforward, dt)
+                                       c.dim_feedforward, c.dropout, dt, c.use_kernels)
         self.class_embed = Dense(D, c.num_classes + 1, dtype=dt)
         self.bbox_embed = HeadMLP(D, D, 4, dtype=dt)
         self.offset_embed = HeadMLP(D, D, 2, dtype=dt)
@@ -120,11 +127,13 @@ class DETR(nn.Module):
         self.size_embed = HeadMLP(D, D, 3, dtype=dt)
         self.depth_embed = HeadMLP(D, D, 1, dtype=dt)
 
-    def forward(self, images: torch.Tensor, pixel_mask: torch.Tensor | None = None) -> dict:
+    def forward(self, images: torch.Tensor, pixel_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> dict:
         """
         Args:
             images: [B, H, W, 3] normalized images (cast to the compute dtype).
             pixel_mask: [B, H, W] bool, True = padded pixel.
+            generator: draws the dropout masks in ``.train()`` mode.
 
         Returns:
             dict with pred_logits [B, Q, C+1], pred_boxes [B, Q, 4] (cxcywh,
@@ -145,7 +154,7 @@ class DETR(nn.Module):
         pos = position.sine_position_encoding(feat_mask, num_pos_feats=c.hidden_dim // 2,
                                               dtype=c.dtype)
         src = self.input_proj(feats).permute(0, 2, 3, 1)
-        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos)
+        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos, generator)
 
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs))

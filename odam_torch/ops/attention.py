@@ -4,11 +4,14 @@ Counterpart of ``odam_tpu/ops/attention.py`` with the same contract and the
 same routing: batch-first [B, L, D], heads split head-major [H, dh], a
 ``key_padding_mask`` [B, Lk] bool with True = padded (logit -1e9).
 
-Calls with B <= ``KERNEL_MAX_BATCH`` go to the attention kernels of
+With ``use_kernels`` (the counterpart of JAX's ``use_pallas``), calls with
+B <= ``KERNEL_MAX_BATCH`` go to the attention kernels of
 :mod:`odam_torch.ops.cuda_attention` (flash for Lk >= ``FLASH_MIN_KEYS``,
 fused below it); larger batches, such as the associator's history fuser at
 B = 64 tracks, take the plain path below.  On a CPU tensor the kernel
 wrappers run their plain versions, so the routing is the same on both.
+Without it every call takes the plain path, which autograd can
+differentiate: the kernels have no backward, so training turns them off.
 """
 from __future__ import annotations
 
@@ -28,13 +31,15 @@ KERNEL_MAX_BATCH = 2
 
 
 def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-             key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+             key_padding_mask: torch.Tensor | None = None,
+             use_kernels: bool = True) -> torch.Tensor:
     """Scaled dot-product attention over heads.
 
     Args:
         q: [B, Lq, D]; k, v: [B, Lk, D] (already projected).
         num_heads: H; D must be divisible by H.
         key_padding_mask: optional [B, Lk] bool, True = padded (masked out).
+        use_kernels: route B <= KERNEL_MAX_BATCH to the kernel wrappers.
 
     Returns:
         [B, Lq, D] attention output (before the out projection).
@@ -47,7 +52,7 @@ def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     kh = k.reshape(B, Lk, H, dh)
     vh = v.reshape(B, Lk, H, dh)
 
-    if B <= KERNEL_MAX_BATCH:
+    if use_kernels and B <= KERNEL_MAX_BATCH:
         if Lk >= FLASH_MIN_KEYS:
             out = cuda_attention.flash_attention(qh, kh, vh, key_padding_mask)
         else:

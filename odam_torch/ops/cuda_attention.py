@@ -19,6 +19,12 @@ Layout at this boundary is the JAX package's: q [B, Lq, H, dh], k and v
 Softmax and accumulation run in f32 and the output has the input dtype
 (float32 or bfloat16); dh is 16, 32 or 64.
 
+Neither kernel has a backward, so both wrappers raise, on any device and
+before any launch, when grad mode is on and q, k or v requires grad: a
+model that trains is built with ``use_kernels=False`` and takes the plain
+path of :func:`odam_torch.ops.attention.mha_core`, as JAX trains without
+``use_pallas``.
+
 On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
 ``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
 ``LAUNCHES``, or raises.  ``LAUNCHES_BY_DTYPE`` and ``PLAIN_CALLS_BY_DTYPE``
@@ -155,6 +161,11 @@ def _check(q, k, v, key_padding_mask) -> None:
     if key_padding_mask is not None and (key_padding_mask.dtype != torch.bool or
                                          key_padding_mask.shape != k.shape[:2]):
         raise ValueError("key_padding_mask must be bool [B, Lk]")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernels have no backward (neither has the JAX package's Pallas "
+            "kernels): a gradient through them would be cut.  Build the model with "
+            "use_kernels=False to train it, or call it under torch.no_grad()")
 
 
 def _aligned(x: torch.Tensor) -> bool:

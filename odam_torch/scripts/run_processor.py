@@ -18,9 +18,12 @@ It runs on the card unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16, as the JAX CLI does: the models compute in bf16 with float32
 parameters, and everything after them (postprocess, association scores,
 Sinkhorn, tracking, mapping) runs in float32.  TF32 is off in both dtypes,
-so float32 stays float32 on the card.  The attention kernels always run on
-the card, so ``--use_pallas`` has no counterpart.  ``--scene_parallel``
-exits with code 2 and names the ROADMAP item that ports it.
+so float32 stays float32 on the card.  ``--use_pallas`` selects the
+attention kernels (``use_kernels``): ``on`` and ``auto`` launch them on the
+card, and on the CPU run the wrappers' plain versions, so a CPU run takes
+the card's routing call for call; ``off`` takes the plain path of
+``mha_core``, as JAX's ``off`` does.  ``--scene_parallel`` exits with code
+2 and names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -68,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sequences", default=None,
                     help="file with one scene id per line (default: all scenes)")
     ap.add_argument("--detector_ckpt", default="./experiments/detector.pth",
-                    help="the reference's .pth (unpickled: load only trusted files), or a "
-                         "Flax tree as .npz (tests/test_torch_checkpoints.py writes them); "
+                    help="the reference's .pth (unpickled: load only trusted files), a "
+                         "Flax tree as .npz (tests/test_torch_checkpoints.py writes them), "
+                         "or a ckpt_<step> directory of the port's train scripts; "
                          "a missing file means seeded weights")
     ap.add_argument("--associator_ckpt", default="./experiments/associator.pth",
                     help="as --detector_ckpt")
@@ -84,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device_resize", action="store_true",
                     help="ship raw uint8 frames and resize+normalize on the device")
     ap.add_argument("--prefetch_workers", type=int, default=2)
+    ap.add_argument("--use_pallas", choices=["auto", "on", "off"], default="auto",
+                    help="the attention kernels (auto: on; on the CPU the wrappers run "
+                         "their plain versions)")
     ap.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="parity: exact Hungarian + sampled track projection; fast: greedy "
                          "decode + closed-form projection")
@@ -124,8 +131,12 @@ def load_weights(path: str, what: str, from_pth) -> dict | None:
     no such file: ``.npz`` is read as a Flax tree, any other file as a
     reference ``.pth`` converted by ``from_pth(state_dict)``."""
     from ..models import convert, porting
+    from ..utils import checkpoint
 
     if path and os.path.isdir(path):
+        if checkpoint.latest_path(path) is not None:
+            print(f"loaded {what} weights from the checkpoint {path}")
+            return checkpoint.restore(path)[0]
         sys.exit(f"{what} checkpoint {path} is an orbax directory, which the port does not "
                  "read: convert it to .npz (tests/test_torch_checkpoints.py shows how)")
     if path and os.path.isfile(path):
@@ -138,14 +149,15 @@ def load_weights(path: str, what: str, from_pth) -> dict | None:
 
 
 def build_models(cfg, detector_ckpt: str, associator_ckpt: str, decode: str, device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_kernels: bool = True):
     from ..models import associator as assoc_mod
     from ..models import detr as detr_mod
     from ..models import porting
 
-    dcfg = detr_mod.DETRConfig.from_cfg(cfg, dtype=dtype)
-    acfg = dataclasses.replace(assoc_mod.AssociatorConfig.from_cfg(cfg, dtype=dtype),
-                               decode=decode)
+    dcfg = detr_mod.DETRConfig.from_cfg(cfg, dtype=dtype, use_kernels=use_kernels)
+    acfg = dataclasses.replace(
+        assoc_mod.AssociatorConfig.from_cfg(cfg, dtype=dtype, use_kernels=use_kernels),
+        decode=decode)
     detr = detr_mod.build_detr(dcfg, device=device, flax_params=load_weights(
         detector_ckpt, "detector",
         lambda sd: porting.convert_detr(sd, enc_layers=dcfg.enc_layers,
@@ -232,7 +244,7 @@ def main(argv: list[str] | None = None) -> int:
     cfg = config_mod.merge_cfg([args.config_path])
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
     detr, assoc = build_models(cfg, args.detector_ckpt, args.associator_ckpt, decode, device,
-                               dtype)
+                               dtype, use_kernels=args.use_pallas != "off")
     pcfg = proc_mod.PipelineConfig(
         detect_threshold=args.detect_threshold,
         score_threshold=args.attach_threshold,

@@ -1,5 +1,5 @@
-"""Box helpers: the detector's postprocess and NMS, and the min-area
-oriented box of the mapping stage.
+"""Box helpers: the detector's postprocess and NMS, the training matcher's
+GIoU, and the min-area oriented box of the mapping stage.
 
 Counterpart of the ``odam_tpu/utils/boxes.py`` functions those stages need;
 the rest of that module waits.
@@ -18,6 +18,11 @@ def cxcywh_to_xyxy(box: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
+def xyxy_to_cxcywh(box: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = box.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
 def box_area(box: torch.Tensor) -> torch.Tensor:
     return (box[..., 2] - box[..., 0]) * (box[..., 3] - box[..., 1])
 
@@ -33,6 +38,23 @@ def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
     inter = wh[..., 0] * wh[..., 1]
     union = area1[:, None] + area2[None, :] - inter
     return inter / union, union
+
+
+def pairwise_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    iou = inter / union
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull
 
 
 def iou_aabb(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_odam_tpu():
     mods = _modules()
     assert len(mods) >= 20
+    training = {"odam_torch.models." + m for m in ("matcher", "criterion", "training")}
+    training |= {"odam_torch.data.datasets", "odam_torch.utils.checkpoint",
+                 "odam_torch.utils.metrics", "odam_torch.scripts.train_detector",
+                 "odam_torch.scripts.train_associator"}
+    assert training <= set(mods), training - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -80,3 +85,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         processor.OdamPipeline(d, a)
     assert processor.OdamPipeline(d, a, device="cpu").device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("script", ["train_detector", "train_associator"])
+def test_train_scripts_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path, script):
+    import importlib
+
+    cli = importlib.import_module(f"odam_torch.scripts.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--synthetic", "--steps", "1", "--out_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)

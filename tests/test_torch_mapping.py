@@ -13,6 +13,8 @@ Tolerances (each test states its own):
   with and without the prior, a frozen object, a view that sees part of an
   object behind the camera): see the two solve tests.
 """
+import dataclasses
+import itertools
 import os
 
 import jax
@@ -143,7 +145,8 @@ S, ITERS = 200, 200
 def test_config_and_model_configs_match(path):
     """merge_cfg exact, with a dict override coerced to the YAML's types; the
     DETR and associator configs read from the YAML carry JAX's values for
-    every field the port has."""
+    every field the port has (``use_kernels`` is JAX's ``use_pallas``, set
+    both ways)."""
     path = os.path.join(ROOT, path)
     tc, jc = t_config.merge_cfg([path]), j_config.merge_cfg([path])
     assert tc == jc
@@ -154,15 +157,18 @@ def test_config_and_model_configs_match(path):
             return str(t).replace("torch.", "") == np.dtype(j).name
         return t == j
 
-    for dtype in ("float32", "bfloat16"):
-        td = t_detr.DETRConfig.from_cfg(tc, dtype=getattr(torch, dtype))
-        jd = j_detr.DETRConfig.from_cfg(jc, dtype=getattr(jnp, dtype))
+    jax_name = {"use_kernels": "use_pallas"}
+    for dtype, kernels in itertools.product(("float32", "bfloat16"), (False, True)):
+        td = t_detr.DETRConfig.from_cfg(tc, dtype=getattr(torch, dtype), use_kernels=kernels)
+        jd = j_detr.DETRConfig.from_cfg(jc, dtype=getattr(jnp, dtype), use_pallas=kernels)
         for f in td.__dataclass_fields__:
-            assert same(getattr(td, f), getattr(jd, f), f), f
-        ta = t_assoc.AssociatorConfig.from_cfg(tc, dtype=getattr(torch, dtype))
-        ja = j_assoc.AssociatorConfig.from_cfg(jc, dtype=getattr(jnp, dtype))
+            assert same(getattr(td, f), getattr(jd, jax_name.get(f, f)), f), f
+        ta = t_assoc.AssociatorConfig.from_cfg(tc, dtype=getattr(torch, dtype),
+                                               use_kernels=kernels)
+        ja = dataclasses.replace(j_assoc.AssociatorConfig.from_cfg(jc, dtype=getattr(jnp, dtype)),
+                                 use_pallas=kernels)
         for f in ta.__dataclass_fields__:
-            assert same(getattr(ta, f), getattr(ja, f), f), f
+            assert same(getattr(ta, f), getattr(ja, jax_name.get(f, f)), f), f
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         t_detr.DETRConfig.from_cfg({**tc, "pre_norm": True})
 
