@@ -31,36 +31,47 @@ Phases, each printed as one JSON line on stdout:
 7. offline: the same 8 frames through BatchedDetector (batch 8) and the
    cached-detection pipeline: the online slice's track ids, rows within
    1e-3, launches flash 0 and fused 16 a frame once tracks exist;
-8. mapping: optim_process -> merge_process -> optim_process at the default
+8. scene_parallel_full: SceneParallelRunner at full width, P = 1, 2, 4
+   and 8 lanes of 8 uint8 frames each (every lane in its own order), f32
+   then bf16, every lane against the serial f32 pipeline; aggregate
+   frames/s, step and lane-frame times, launches a step (profiled), host
+   syncs, peak memory, and both kernels' launches at B = P;
+9. mapping: optim_process -> merge_process -> optim_process at the default
    PipelineConfig (64 objects x 256 views x 1000 samples x 200 iterations)
    on a synthetic scene of 64 ground-truth boxes and 256 cameras at
    800x1071: the loss falls more than 10x, the mean IoU with the ground
    truth is above 0.7, the first 5 iterations agree with the CPU within
    rtol 1e-4; the time of each stage and a profile of the solve's
    iterations;
-9. mapping_lm: the same with ``optim_solver="lm"`` (40 LM iterations, the
-   Adam fallback): the loss falls, mean IoU above 0.7, at most 16 objects
-   fall back, the first 3 iterations agree with the CPU within rtol 1e-3;
-10. scene: ``python -m odam_torch.scripts.run_processor --dtype float32``
+10. mapping_lm: the same with ``optim_solver="lm"`` (40 LM iterations, the
+    Adam fallback): the loss falls, mean IoU above 0.7, at most 16 objects
+    fall back, the first 3 iterations agree with the CPU within rtol 1e-3;
+11. scene: ``python -m odam_torch.scripts.run_processor --dtype float32``
     then ``eval_scan2cad`` on the three committed hard-split scenes with
     the committed weights (artifacts/torch/*.npz), on the card and on the
     CPU: the same tracks, boxes and F1 table, and the kernel launches of
     every frame checked;
-11. cli_full, cli_fast, cli_offline: ``run_processor`` at full width
+12. scene_parallel_hard: SceneParallelRunner on the same three scenes at
+    P = 3 and 4 (one lane of padding) against the serial OdamPipeline on
+    the card: tracks with frame ids and classes exact, rows within 1e-3,
+    the scene phase's F1 table, fused_attention launched at B = P;
+    cli_scene_parallel: ``run_processor --scene_parallel 3`` and
+    ``eval_scan2cad`` give the scene phase's F1 table;
+13. cli_full, cli_fast, cli_offline: ``run_processor`` at full width
     (configs/detr_scan_net.yaml, seeded weights) on 4 frames of one
     committed scene resized to 800x800: f32 online; ``--profile fast
     --device_resize`` in bf16; ``--offline --detect_batch 4 --solver lm``
     in bf16; the kernel launches of every frame checked, with their dtype;
-12. train_detector: the detector's train step at full width on the plain
+14. train_detector: the detector's train step at full width on the plain
     attention path: one f32 step card against CPU (loss within 1e-4, each
     leaf's gradient within 1e-3), then 10 bf16 steps at batch 8, 512x672
     on one synthetic batch: step time, images/s, peak memory, the loss
     falling, one host sync a step (the matcher's copy), frozen leaves
     bit-equal, no attention kernel launched, and a profile of two steps
     (host- or device-bound);
-13. train_assoc: the same for the associator at its defaults (20 steps,
+15. train_assoc: the same for the associator at its defaults (20 steps,
     batch 8, no host sync);
-14. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
+16. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
     --synthetic --steps 3`` on the card, their checkpoints through
     ``run_processor.build_models`` and a 2-frame ``run_processor`` run.
 
@@ -224,9 +235,39 @@ def build() -> dict:
 # ------------------------------------------------------------------ kernels
 
 def _case(name, B, Lq, Lk, H, dh, dtype, masked_tail=0, all_masked_row=False, mask=True,
-          label=""):
+          label="", path=None):
     return dict(name=name, B=B, Lq=Lq, Lk=Lk, H=H, dh=dh, dtype=dtype,
-                masked_tail=masked_tail, all_masked_row=all_masked_row, mask=mask, label=label)
+                masked_tail=masked_tail, all_masked_row=all_masked_row, mask=mask, label=label,
+                path=path)
+
+
+SP_LANES = (1, 2, 4, 8)            # the lanes of scene_parallel_full
+
+
+def _lane_cases() -> list[dict]:
+    """Every attention call of the lane step at full width, at B = P: the
+    lanes stacked on the batch axis, one launch for all of them."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for P in SP_LANES[1:]:
+            tag = f"lanes P={P}: "
+            cases += [
+                _case("flash_attention", P, 850, 850, 8, 32, dtype,
+                      label=tag + "DETR encoder self", path="lanes"),
+                _case("flash_attention", P, 100, 850, 8, 32, dtype,
+                      label=tag + "DETR decoder cross", path="lanes"),
+                _case("fused_attention", P, 100, 100, 8, 32, dtype, mask=False,
+                      label=tag + "DETR decoder self", path="lanes"),
+                _case("fused_attention", P, 64, 64, 4, 64, dtype, masked_tail=20,
+                      label=tag + "GNN track self", path="lanes"),
+                _case("fused_attention", P, 30, 30, 4, 64, dtype, mask=False,
+                      label=tag + "GNN detection self", path="lanes"),
+                _case("fused_attention", P, 64, 30, 4, 64, dtype, mask=False,
+                      label=tag + "GNN track<-detection cross", path="lanes"),
+                _case("fused_attention", P, 30, 64, 4, 64, dtype, masked_tail=20,
+                      label=tag + "GNN detection<-track cross", path="lanes"),
+            ]
+    return cases
 
 
 KERNEL_CASES = [
@@ -323,6 +364,8 @@ KERNEL_CASES = [
           label="largest fused Lk, dh=64"),
     _case("flash_attention", 2, 37, 257, 2, 16, torch.bfloat16, masked_tail=7,
           all_masked_row=True, label="ragged Lk, all-masked batch row, dh=16"),
+    # scene_parallel_full: the lane step at P = 2, 4, 8 (P = 1 is the slice's)
+    *_lane_cases(),
 ]
 
 
@@ -385,7 +428,7 @@ def kernel_checks(gen: torch.Generator) -> list[dict]:
             "replaces": TPU_KERNEL[c["name"]], "case": c["label"],
             "shape": {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "dh": dh,
                       "masked_tail": c["masked_tail"], "all_masked_row": c["all_masked_row"]},
-            "dtype": str(dtype).replace("torch.", ""), "launches": None,
+            "dtype": str(dtype).replace("torch.", ""), "path": c["path"], "launches": None,
             "max_abs_err": max_err, "tol": tol_desc, "ms": times["device_ms"],
             "plain_ms": times["plain_device_ms"], "library_ms": times["library_device_ms"],
             **times,
@@ -722,6 +765,238 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
               "max_row_abs_diff_online": row_err, "tol": {"atol": OFFLINE_ROW_ATOL},
               "n_tracks": len(cached.tracks), "launches": launches}
     return report, launches
+
+
+# -------------------------------------------------------------------- lanes
+
+SP_FRAMES = 8                      # frames a lane in scene_parallel_full
+SP_ORDER_SEED = 11                 # the frames, and each lane's order of them
+
+
+def _lane_scenes(frames, n_lanes: int, shape) -> list[dict]:
+    """``n_lanes`` scenes over the same frames, each in its own order (lane
+    0 in order), so that no two lanes see the same sequence."""
+    n = len(frames)
+    rng = np.random.default_rng(SP_ORDER_SEED)
+    orders = [np.arange(n)] + [rng.permutation(n) for _ in range(n_lanes - 1)]
+    if len({tuple(o) for o in orders}) != n_lanes:
+        raise AssertionError("two lanes got the same order of frames")
+    return [{"frames": [frames[i] for i in order], "frame_ids": list(range(n)),
+             "T_wcs": [_pose(int(i)) for i in order], "K": _intrinsics(*shape)}
+            for order in orders]
+
+
+def _run_lanes(runner, scenes, img_h, img_w, sync_each: bool = False,
+               profile_steps: tuple[int, ...] = ()) -> tuple[tuple, dict]:
+    """``runner.run_frames`` with each step recorded: its host time
+    (synchronized before and after when ``sync_each``), its per-lane
+    detection counts (left on the device until the end), the synchronizing
+    CUDA calls it made (torch's sync debug mode, on the card, when not
+    ``sync_each``), and a torch.profiler window over the steps in
+    ``profile_steps``.  Returns (the lane-stacked stores and logs, the
+    record)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = runner.device
+    count_syncs = dev.type == "cuda" and not sync_each
+    record = {"ms": [], "n_detections": [], "synchronizing_calls": 0}
+    inner = runner.step
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    prof = profile(activities=activities)
+
+    def step(*args):
+        i = len(record["ms"])
+        if profile_steps and i == profile_steps[0]:
+            _sync(dev)
+            prof.start()
+            record["profile_t0"] = time.perf_counter()
+        if sync_each:
+            _sync(dev)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = inner(*args)
+            finally:
+                if count_syncs:
+                    torch.cuda.set_sync_debug_mode("default")
+        record["synchronizing_calls"] += sum("synchronizing" in str(w.message) for w in caught)
+        if sync_each:
+            _sync(dev)
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["n_detections"].append(res.n_detections)
+        if profile_steps and i == profile_steps[-1]:
+            _sync(dev)
+            record["profile_wall_ms"] = (time.perf_counter() - record["profile_t0"]) * 1e3
+            prof.stop()
+            record["profile"] = prof
+        return res
+
+    runner.step = step
+    try:
+        state = runner.run_frames(scenes, img_h, img_w)
+    finally:
+        del runner.step
+    _sync(dev)
+    record["n_detections"] = torch.stack(record["n_detections"]).cpu().numpy()   # [F, P]
+    return state, record
+
+
+def _profile_summary(prof, n: int, wall_ms: float) -> dict:
+    """Kernel launches and device busy time a step over ``n`` profiled steps."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("odam.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    return {"kernel_launches_per_step": sum(e.count for e in kernels) / n,
+            "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms / n,
+            "device_idle_share": max(0.0, 1 - busy_ms / (wall_ms / n))}
+
+
+# The pixel columns of a track row: the 2D box (2:6) and its copy (78:82).
+PIXEL_COLUMNS = np.r_[2:6, 78:82]
+
+
+def _hold_lane(where: str, dtype: str, rows, rows_ref, img_h: int, img_w: int) -> float:
+    """A lane's logged rows against the serial f32 pipeline's.  f32: within
+    DETR_ATOL / DETR_RTOL (the max |diff| returned).  bf16: within
+    BF16_ROW_RTOL x max(1, |f32|) with the pixel columns in units of the
+    image (x / width, y / height), the max relative diff returned.  The box
+    head predicts normalized coordinates, and in bf16 one rounding of one
+    near 0.5 is 2^-9, 2.1 px of a 1071-px frame: against the pixel value
+    that is 2.5% of an edge at 83 px, against the frame 0.2%."""
+    valid = rows_ref[..., 0] >= 0
+    a, b = rows_ref[valid], rows[valid]
+    if dtype == "float32":
+        if not np.allclose(b, a, atol=DETR_ATOL, rtol=DETR_RTOL):
+            raise AssertionError(f"{where}: rows max|diff| {np.abs(b - a).max():.3e}")
+        return float(np.abs(b - a).max(initial=0.0))
+    scale = np.ones(a.shape[1], np.float32)
+    scale[PIXEL_COLUMNS] = [img_w, img_h, img_w, img_h] * 2
+    a, b = a / scale, b / scale
+    rel = float((np.abs(b[:, 1:] - a[:, 1:]) / np.maximum(1.0, np.abs(a[:, 1:]))).max(initial=0.0))
+    if not rel <= BF16_ROW_RTOL:
+        raise AssertionError(f"{where}: rows {rel:.3e} of f32 exceed {BF16_ROW_RTOL}")
+    return rel
+
+
+def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_SHAPE,
+                            lanes: tuple[int, ...] = SP_LANES,
+                            n_frames: int = SP_FRAMES) -> tuple[dict, dict]:
+    """SceneParallelRunner at full width (the slice's seeded models and
+    PipelineConfig, 800x1071 uint8 frames) at P = 1, 2, 4 and 8 lanes of 8
+    frames each, every lane's frames in its own order; f32 (TF32 off), then
+    bf16.  Every lane is held to the serial f32 pipeline on its frames:
+    detections a frame and track ids exact, and its logged rows by
+    :func:`_hold_lane` (bf16: the slice_bf16 bar, with pixels in units of
+    the frame).  Each (dtype, P) runs three times: steps synchronized one by
+    one, for the step time; unsynchronized, for the aggregate frames/s, with
+    the kernel launches by batch, host syncs, synchronizing calls and peak
+    memory counted (the counts set to 0 just before, read just after); and
+    with the last two steps profiled, for the launches and device time a
+    step.  Both kernels must launch at B = P only, and the launches a step
+    at the most lanes must stay below twice those at one lane."""
+    from odam_torch.models import associator, detr
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.runtime import processor, scene_parallel
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    img_h, img_w = shape
+    cfg = processor.PipelineConfig(detect_threshold=0.0, score_threshold=0.0)
+    rng = np.random.default_rng(SP_ORDER_SEED)
+    frames = [rng.integers(0, 256, size=tuple(shape) + (3,), dtype=np.uint8)
+              for _ in range(n_frames)]
+    scenes = _lane_scenes(frames, max(lanes), shape)
+    serial = []
+    for s in scenes:              # the serial f32 reference of every lane's sequence
+        pipe = processor.OdamPipeline(det_f32, as_f32, cfg, device=dev)
+        pipe.init_sequence(s["K"], img_h, img_w)
+        n = [int(pipe.process_frame(img, fid, T).n_detections)
+             for img, fid, T in zip(s["frames"], s["frame_ids"], s["T_wcs"])]
+        serial.append((n, *_logged(pipe, n_frames)))
+        del pipe
+    models = {"float32": (det_f32, as_f32),
+              "bfloat16": (detr.build_detr(detr.DETRConfig(dtype=torch.bfloat16), seed=0,
+                                           device=dev),
+                           associator.build_associator(
+                               associator.AssociatorConfig(dtype=torch.bfloat16), seed=1,
+                               device=dev))}
+    report = {"phase": "scene_parallel_full", "image": [img_h, img_w],
+              "frames_per_lane": n_frames, "transport": "uint8", "runs": {}}
+    by_batch = {}
+    for dtype, (det, assoc) in models.items():
+        for P in lanes:
+            where = f"scene_parallel_full {dtype} P={P}"
+            runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, P, device=dev)
+            _, timed = _run_lanes(runner, scenes[:P], img_h, img_w, sync_each=True)
+            resident = _reset_peak(dev)
+            ca.reset_counts()
+            syncs = runner.host_syncs_total
+            t0 = time.perf_counter()
+            (stores, logs), rec = _run_lanes(runner, scenes[:P], img_h, img_w)
+            seconds = time.perf_counter() - t0
+            launches = dict(ca.LAUNCHES if on_card else ca.PLAIN_CALLS)
+            batches = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+            host_syncs = runner.host_syncs_total - syncs
+            peak = torch.cuda.max_memory_allocated() - resident if on_card else None
+            if on_card and any(set(b) != {P} for b in batches.values()):
+                raise AssertionError(f"{where}: launches by batch {batches}, not all at B = {P}")
+            for name, b in batches.items():
+                by_batch.setdefault(dtype, {}).setdefault(name, {})[P] = b.get(P, 0)
+            if any(ca.ALIGN_COPIES.values()):
+                raise AssertionError(f"{where}: aligned copies {ca.ALIGN_COPIES}")
+            worst = 0.0
+            for lane in range(P):
+                n_ref, rows_ref, ids_ref = serial[lane]
+                n = rec["n_detections"][:, lane].tolist()
+                ids = logs.ids[lane, :n_frames].cpu().numpy()
+                if n != n_ref or not np.array_equal(ids, ids_ref):
+                    raise AssertionError(f"{where} lane {lane}: detections {n} or track ids "
+                                         f"differ from the serial f32 pipeline's ({n_ref})")
+                worst = max(worst, _hold_lane(f"{where} lane {lane}", dtype,
+                                              logs.rows[lane, :n_frames].cpu().numpy(), rows_ref,
+                                              img_h, img_w))
+            if not (torch.isfinite(stores.window).all() and torch.isfinite(logs.rows).all()):
+                raise AssertionError(f"{where}: non-finite track store or log")
+            del stores, logs
+            _, prof_rec = _run_lanes(runner, scenes[:P], img_h, img_w,
+                                     profile_steps=(n_frames - 2, n_frames - 1))
+            profiled = _profile_summary(prof_rec["profile"], 2, prof_rec["profile_wall_ms"])
+            steady = sorted(timed["ms"][2:] or timed["ms"])
+            step_ms = steady[len(steady) // 2]
+            report["runs"][f"{dtype} P={P}"] = {
+                "lanes": P, "dtype": dtype, "frames": P * n_frames,
+                "aggregate_frames_per_s": P * n_frames / seconds, "seconds": seconds,
+                "step_ms_median_steps_2_on": step_ms, "lane_frame_ms": step_ms / P,
+                "step_ms": timed["ms"],
+                "kernel_launches_per_step": profiled["kernel_launches_per_step"],
+                "kernel_launches_per_lane_frame": profiled["kernel_launches_per_step"] / P,
+                "profile": profiled,
+                "host_syncs_per_step": host_syncs / n_frames,
+                "synchronizing_calls_per_step": rec["synchronizing_calls"] / n_frames,
+                "peak_mbytes_above_resident": None if peak is None else peak / 1e6,
+                "launches": launches, "launches_by_batch": batches,
+                ("max_row_abs_diff_serial" if dtype == "float32"
+                 else "max_row_rel_diff_serial_f32"): worst,
+                "n_detections_per_lane": rec["n_detections"].sum(axis=0).tolist()}
+            del runner
+        per_step = {P: report["runs"][f"{dtype} P={P}"]["kernel_launches_per_step"]
+                    for P in lanes}
+        if on_card and not per_step[max(lanes)] < 2 * per_step[min(lanes)]:
+            raise AssertionError(f"scene_parallel_full {dtype}: launches a step {per_step}: "
+                                 f"P = {max(lanes)} not below twice P = {min(lanes)}")
+    del models
+    report["launches_by_batch"] = by_batch
+    report["tol"] = {"float32": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
+                     "bfloat16": f"|bf16 - f32| <= {BF16_ROW_RTOL} x max(1, |f32|), pixel "
+                                 "columns in units of the frame"}
+    counts = {dtype: {name: sum(b.values()) for name, b in per.items()}
+              for dtype, per in by_batch.items()}
+    return report, counts
 
 
 def profile_steps(pipe, frames, first: int, n: int = 2, trace: str = "slice_trace.json") -> dict:
@@ -1078,6 +1353,162 @@ SCENE_QC_IOU = 0.95      # card vs CPU per object (the solve's own spread; see b
 SCENE_ROW_ATOL = 1e-3    # card vs CPU track rows, tests/test_torch_cli.py's bar
 
 
+def _scene_flags() -> tuple[list[str], list[str]]:
+    """The hard split's scenes and the flags of the scene phase's CLI runs."""
+    split = os.path.join(SCENE_DATA, "val.txt")
+    with open(split) as f:
+        scenes = f.read().split()
+    return scenes, ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
+                    "--scans_root", os.path.join(SCENE_DATA, "scans"), "--sequences", split,
+                    "--detector_ckpt",
+                    os.path.join("artifacts", "torch", "rehearsal_hard_detr.npz"),
+                    "--associator_ckpt",
+                    os.path.join("artifacts", "torch", "rehearsal_hard_assoc.npz"),
+                    "--short_side", "192", "--max_size", "192", "--max_objs", "32",
+                    "--max_views", "32", "--dtype", "float32"]
+
+
+def _f1(result_dir: str, scenes: list[str]) -> dict:
+    from odam_torch.eval import scan2cad
+
+    return scan2cad.evaluate(result_dir, os.path.join(SCENE_DATA, "full_annotations.json"),
+                             os.path.join(SCENE_DATA, "scans"), scenes, min_views=10,
+                             verbose=False)
+
+
+def _write_results(out_dir: str, scenes: list[str], outs: list[dict]) -> None:
+    """The CLI's pickles of ``outs``, one per scene."""
+    import pickle
+
+    for seq_id, out in zip(scenes, outs):
+        os.makedirs(os.path.join(out_dir, seq_id), exist_ok=True)
+        with open(os.path.join(out_dir, seq_id, seq_id), "wb") as f:
+            pickle.dump({k: out[k] for k in ("tracks", "bboxes_qc", "bboxes_dl", "quadrics")}, f)
+
+
+def _compare_results(where: str, got: list[dict], want: list[dict]) -> dict:
+    """Tracks of each scene: the same count and order, frame ids and classes
+    exact, rows within SCENE_ROW_ATOL; bboxes_qc IoU reported."""
+    from odam_torch.utils.host_boxes import robust_box3d_iou
+
+    rows, ious = 0.0, []
+    for k, (g, w) in enumerate(zip(got, want)):
+        if len(g["tracks"]) != len(w["tracks"]):
+            raise AssertionError(f"{where} scene {k}: {len(g['tracks'])} tracks, "
+                                 f"{len(w['tracks'])} serial")
+        for a, b in zip(g["tracks"], w["tracks"]):
+            if a.shape != b.shape or not np.array_equal(a[:, :2], b[:, :2]):
+                raise AssertionError(f"{where} scene {k}: track frame ids or classes differ")
+            rows = max(rows, float(np.abs(a - b).max()))
+        ious += [robust_box3d_iou(a, b) for a, b in zip(g["bboxes_qc"], w["bboxes_qc"])]
+    if not rows <= SCENE_ROW_ATOL:
+        raise AssertionError(f"{where}: rows max|diff| {rows:.3e} exceed {SCENE_ROW_ATOL}")
+    return {"max_row_abs_diff": rows, "min_qc_iou": min(ious, default=1.0),
+            "tracks": [len(g["tracks"]) for g in got]}
+
+
+def scene_parallel_hard_run(scene_f1: dict, out_root: str = os.path.join("chiprun_out", "sp_hard"),
+                            device: str = "cuda", lanes: tuple[int, ...] = (3, 4),
+                            max_frames: int | None = None) -> tuple[dict, dict]:
+    """SceneParallelRunner on the committed hard split (3 scenes x 32 frames
+    at 192x192) with the committed weights and the scene phase's flags, at
+    P = 3 and then P = 4 (one lane of padding), against the serial
+    OdamPipeline on the same frames and device: tracks of every scene with
+    frame ids and classes exact and rows within SCENE_ROW_ATOL, and the F1
+    table equal to the scene phase's (``scene_f1``).  fused_attention must
+    launch at B = P (144 image tokens: no flash)."""
+    from odam_torch import config as config_mod
+    from odam_torch.data import scannet
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.runtime import processor, scene_parallel
+    from odam_torch.scripts import run_processor
+
+    scene_ids, flags = _scene_flags()
+    args = run_processor.build_parser().parse_args(
+        flags + (["--max_frames", str(max_frames)] if max_frames else []))
+    dev = torch.device(device)
+    det, assoc = run_processor.build_models(config_mod.merge_cfg([args.config_path]),
+                                            args.detector_ckpt, args.associator_ckpt, "exact",
+                                            dev, torch.float32)
+    cfg = run_processor.pipeline_config(args)
+    index = scannet.SceneIndex(args.scans_root, scene_ids)
+    scenes = [run_processor.scene_inputs(index, s, args) for s in scene_ids]
+    img_h, img_w = scenes[-1]["size"]
+    pipe = processor.OdamPipeline(det, assoc, cfg, device=dev)
+    serial = []
+    t0 = time.perf_counter()
+    for s in scenes:
+        pipe.init_sequence(s["K"], img_h, img_w)
+        for i in range(len(s["frames"])):
+            pipe.process_frame(s["frames"][i], s["frame_ids"][i], s["T_wcs"][i])
+        out = pipe.optim_process(pipe.tracks)
+        serial.append(pipe.optim_process(pipe.merge_process(out)))
+    serial_s = time.perf_counter() - t0
+    _write_results(os.path.join(out_root, "serial"), scene_ids, serial)
+    report = {"phase": "scene_parallel_hard", "device": device,
+              "frames": [len(s["frames"]) for s in scenes], "serial_seconds": serial_s,
+              "f1_serial": _f1(os.path.join(out_root, "serial"), scene_ids)["average"], "lanes": {}}
+    counts = {name: 0 for name in ca.LAUNCHES}
+    for P in lanes:
+        counts_of = ca.LAUNCHES if dev.type == "cuda" else ca.PLAIN_CALLS
+        ca.reset_counts()
+        runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, P, device=dev)
+        t0 = time.perf_counter()
+        outs = runner.run_scenes(scenes, img_h, img_w)
+        seconds = time.perf_counter() - t0
+        launched = dict(counts_of)
+        by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+        if dev.type == "cuda" and (by_batch["fused_attention"].get(P, 0) == 0
+                                   or launched["flash_attention"]):
+            raise AssertionError(f"scene_parallel_hard P={P}: launches by batch {by_batch}")
+        out_dir = os.path.join(out_root, f"P{P}")
+        _write_results(out_dir, scene_ids, outs)
+        f1 = _f1(out_dir, scene_ids)
+        if f1 != scene_f1:
+            raise AssertionError(f"scene_parallel_hard P={P}: F1 {f1['average']} differs from "
+                                 f"the scene phase's {scene_f1['average']}")
+        report["lanes"][f"P={P}"] = {
+            **_compare_results(f"scene_parallel_hard P={P}", outs, serial),
+            "seconds": seconds, "f1_equals_scene": True, "f1": f1["average"],
+            "launches": launched, "launches_by_batch": by_batch,
+            "overflow_reports": [o["overflow_report"] for o in outs]}
+        for name in counts:
+            counts[name] += launched[name]
+    return report, counts
+
+
+def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun_out", "cli_sp"),
+                           device: str = "cuda", n_lanes: int = 3) -> tuple[dict, dict]:
+    """``run_processor --scene_parallel 3`` on the hard split with the scene
+    phase's flags, then ``eval_scan2cad``: its F1 table must equal the scene
+    phase's, and fused_attention must launch at B = 3."""
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import eval_scan2cad, run_processor
+
+    scene_ids, flags = _scene_flags()
+    ca.reset_counts()
+    t0 = time.perf_counter()
+    if run_processor.main(flags + ["--out_dir", out_root, "--device", device,
+                                   "--scene_parallel", str(n_lanes)]) != 0:
+        raise AssertionError("run_processor --scene_parallel failed")
+    seconds = time.perf_counter() - t0
+    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+    if device == "cuda" and by_batch["fused_attention"].get(n_lanes, 0) == 0:
+        raise AssertionError(f"cli_scene_parallel: launches by batch {by_batch}")
+    f1 = eval_scan2cad.main(["--result_dir", out_root,
+                             "--scan2cad", os.path.join(SCENE_DATA, "full_annotations.json"),
+                             "--scans_root", os.path.join(SCENE_DATA, "scans"),
+                             "--val_split", os.path.join(SCENE_DATA, "val.txt"),
+                             "--min_views", "10"])
+    if f1 != scene_f1:
+        raise AssertionError(f"cli_scene_parallel: F1 {f1['average']} differs from the scene "
+                             f"phase's {scene_f1['average']}")
+    return ({"phase": "cli_scene_parallel", "lanes": n_lanes, "scenes": len(scene_ids),
+             "seconds": seconds, "f1": f1["average"], "f1_equals_scene": True,
+             "launches": counts, "launches_by_batch": by_batch}, counts)
+
+
 def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
     """``odam_torch.scripts.run_processor.main`` with every frame's kernel
     launches (or, on the CPU, plain calls), by dtype too, and every scene's
@@ -1161,15 +1592,7 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
     from odam_torch.ops import cuda_attention as ca
     from odam_torch.utils.host_boxes import robust_box3d_iou
 
-    split = os.path.join(SCENE_DATA, "val.txt")
-    with open(split) as f:
-        scenes = f.read().split()
-    common = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
-              "--scans_root", os.path.join(SCENE_DATA, "scans"), "--sequences", split,
-              "--detector_ckpt", os.path.join("artifacts", "torch", "rehearsal_hard_detr.npz"),
-              "--associator_ckpt", os.path.join("artifacts", "torch", "rehearsal_hard_assoc.npz"),
-              "--short_side", "192", "--max_size", "192", "--max_objs", "32",
-              "--max_views", "32", "--dtype", "float32"]
+    scenes, common = _scene_flags()
     runs, results, f1 = {}, {}, {}
     for device in devices:
         out_dir = os.path.join(out_root, device)
@@ -1730,6 +2153,10 @@ def main() -> int:
     offline_report, paths["offline"] = offline_run(det_gpu, as_gpu, frames, slice_pipe)
     emit(offline_report)
     del slice_pipe
+    sp_full_report, sp_counts = scene_parallel_full_run(det_gpu, as_gpu)
+    emit(sp_full_report)
+    paths["scene_parallel_full"] = sp_counts["float32"]
+    paths["scene_parallel_full_bf16"] = sp_counts["bfloat16"]
     for path in ("slice", "slice_bf16"):
         for name, n in paths[path].items():
             if n == 0:
@@ -1742,6 +2169,10 @@ def main() -> int:
     emit(scene_report)
     if paths["scene"]["fused_attention"] == 0:
         raise AssertionError("fused_attention was never launched on the scene path")
+    sp_hard_report, paths["scene_parallel_hard"] = scene_parallel_hard_run(scene_report["f1"])
+    emit(sp_hard_report)
+    cli_sp_report, paths["cli_scene_parallel"] = cli_scene_parallel_run(scene_report["f1"])
+    emit(cli_sp_report)
     cli_runs = {"cli_full": ("--dtype", "float32"),
                 "cli_fast": ("--profile", "fast", "--device_resize", "--dtype", "bfloat16"),
                 "cli_offline": ("--offline", "--detect_batch", "4", "--solver", "lm")}
@@ -1760,8 +2191,12 @@ def main() -> int:
         paths[report["phase"]] = counts
         emit(report)
     for row in kernel_rows:
-        main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
-        row["launches"] = paths[main_path][row["name"]]
+        if row["path"] == "lanes":      # the lane step's launches at this B
+            row["launches"] = sp_full_report["launches_by_batch"][row["dtype"]][row["name"]].get(
+                row["shape"]["B"], 0)
+        else:
+            main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
+            row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     emit({"kernels": kernel_rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -11,7 +11,11 @@ counted in ``Associator.host_syncs``.  Training needs no decode:
 :meth:`Associator.assignment` stops at the log assignment, with no host
 copy, and :func:`association_nll` is the loss.  ``use_kernels`` (JAX's
 ``use_pallas``) sends the GNN's attention to the CUDA kernels; training
-turns it off.
+turns it off.  ``lanes`` in :meth:`Associator.forward` and
+:meth:`Associator.assignment` is the number of scenes stacked on the batch
+axis (the scene-parallel step), which the attention routes on: the GNN's
+calls at B = lanes take the kernels, the history fuser's at B = lanes x T
+the plain path, as each lane's calls do in JAX.
 
 ``AssociatorConfig.dtype`` is the compute dtype of the encoder, the GNN and
 the final projection, with Flax's semantics (:mod:`.layers`); the time
@@ -96,9 +100,9 @@ class AttentionalPropagation(nn.Module):
         self.merge = Dense(d_model, d_model, dtype=dtype)
         self.mlp = ChannelMLP((2 * d_model, 2 * d_model, d_model), dtype)
 
-    def forward(self, x, source, key_padding_mask=None):
+    def forward(self, x, source, key_padding_mask=None, lanes: int = 1):
         msg = mha_core(self.q_proj(x), self.k_proj(source), self.v_proj(source),
-                       self.num_heads, key_padding_mask, self.use_kernels)
+                       self.num_heads, key_padding_mask, self.use_kernels, lanes)
         return self.mlp(torch.cat([x, self.merge(msg)], dim=-1))
 
 
@@ -130,20 +134,21 @@ class Associator(nn.Module):
 
     def forward(self, tracks: torch.Tensor, track_mask: torch.Tensor,
                 detections: torch.Tensor, det_mask: torch.Tensor,
-                match_threshold: float = 0.1) -> AssociatorOutput:
+                match_threshold: float = 0.1, lanes: int = 1) -> AssociatorOutput:
         """
         Args:
             tracks: [B, T, W, 79] track histories (padded slots/timesteps = -1).
             track_mask: [B, T] bool validity of track slots.
             detections: [B, N, 79] this frame's detections (padded rows = -1).
             det_mask: [B, N] bool validity of detection slots.
+            lanes: scenes stacked on the batch axis, which the attention routes on.
         """
-        Z, scores = self.assignment(tracks, track_mask, detections, det_mask)
+        Z, scores = self.assignment(tracks, track_mask, detections, det_mask, lanes)
         matches = self._decode(Z, track_mask, det_mask, match_threshold)
         return AssociatorOutput(log_assignment=Z, scores=scores, matches=matches)
 
     def assignment(self, tracks: torch.Tensor, track_mask: torch.Tensor,
-                   detections: torch.Tensor, det_mask: torch.Tensor
+                   detections: torch.Tensor, det_mask: torch.Tensor, lanes: int = 1
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """The forward without the decode: (log assignment [B, T+1, N+1], raw
         scores [B, T, N]), with no host copy."""
@@ -160,7 +165,7 @@ class Associator(nn.Module):
         # the plain path), then the mean over the full window
         fused = trk.reshape(B * T, W, D)
         for i, _ in enumerate(c.self_gnn_layers):
-            fused = fused + getattr(self, f"fuser_layer{i}")(fused, fused)
+            fused = fused + getattr(self, f"fuser_layer{i}")(fused, fused, lanes=lanes)
         fused = fused.mean(dim=1).reshape(B, T, D)
 
         trk_kpm = ~track_mask
@@ -171,8 +176,8 @@ class Associator(nn.Module):
                 t_src, t_kpm, d_src, d_kpm = d_feat, None, t_feat, trk_kpm
             else:
                 t_src, t_kpm, d_src, d_kpm = t_feat, trk_kpm, d_feat, None
-            t_feat, d_feat = (t_feat + layer(t_feat, t_src, t_kpm),
-                              d_feat + layer(d_feat, d_src, d_kpm))
+            t_feat, d_feat = (t_feat + layer(t_feat, t_src, t_kpm, lanes),
+                              d_feat + layer(d_feat, d_src, d_kpm, lanes))
 
         t_feat = self.final_proj(t_feat)
         d_feat = self.final_proj(d_feat)
@@ -184,11 +189,8 @@ class Associator(nn.Module):
 
     def _decode(self, Z, track_mask, det_mask, threshold: float) -> torch.Tensor:
         if self.config.decode == "greedy":
-            return torch.stack([
-                lap.greedy_peel_match(torch.exp(Z[b, :-1, :-1]), threshold,
-                                      track_mask[b], det_mask[b])
-                for b in range(Z.shape[0])
-            ])
+            return lap.greedy_peel_match(torch.exp(Z[:, :-1, :-1]), threshold, track_mask,
+                                         det_mask)
         B, T1, N1 = Z.shape
         packed = torch.cat([Z.reshape(B, -1), track_mask.float(), det_mask.float()], dim=1)
         if packed.device.type != "cpu":

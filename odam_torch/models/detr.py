@@ -14,6 +14,9 @@ heads; ``postprocess`` casts every head to float32 first.
 ``DETRConfig.dropout`` acts in ``.train()`` mode only, with masks drawn from
 the forward's ``generator``; ``use_kernels`` (JAX's ``use_pallas``) sends
 the transformer's attention to the CUDA kernels, and training turns it off.
+``DETR.forward(..., lanes=P)`` runs P scenes' frames stacked on the batch
+axis (the scene-parallel step): the attention routes on each lane's batch,
+and ``postprocess`` takes one intrinsic matrix per image.
 """
 from __future__ import annotations
 
@@ -128,12 +131,14 @@ class DETR(nn.Module):
         self.depth_embed = HeadMLP(D, D, 1, dtype=dt)
 
     def forward(self, images: torch.Tensor, pixel_mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, lanes: int = 1) -> dict:
         """
         Args:
             images: [B, H, W, 3] normalized images (cast to the compute dtype).
             pixel_mask: [B, H, W] bool, True = padded pixel.
             generator: draws the dropout masks in ``.train()`` mode.
+            lanes: scenes stacked on the batch axis, which the attention
+                routes on (B / lanes images each).
 
         Returns:
             dict with pred_logits [B, Q, C+1], pred_boxes [B, Q, 4] (cxcywh,
@@ -154,7 +159,7 @@ class DETR(nn.Module):
         pos = position.sine_position_encoding(feat_mask, num_pos_feats=c.hidden_dim // 2,
                                               dtype=c.dtype)
         src = self.input_proj(feats).permute(0, 2, 3, 1)
-        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos, generator)
+        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos, generator, lanes)
 
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs))
@@ -211,12 +216,12 @@ class Detections(NamedTuple):
 
 def _suppression_pairs(classes, t_co, dims, boxes_2d, iou3d_threshold: float,
                        iou2d_threshold: float, use_2d: bool) -> torch.Tensor:
-    """[Q, Q] bool: i and j conflict under the reference NMS rules."""
-    Q = classes.shape[0]
+    """[..., Q, Q] bool: i and j conflict under the reference NMS rules."""
+    Q = classes.shape[-1]
     half = dims / 2.0
-    aabb = torch.stack([t_co - half, t_co + half], dim=-2)          # [Q, 2, 3]
-    iou3 = box_ops.iou_aabb(aabb[:, None], aabb[None, :])
-    sup_pair = (classes[:, None] == classes[None, :]) & (iou3 > iou3d_threshold)
+    aabb = torch.stack([t_co - half, t_co + half], dim=-2)          # [..., Q, 2, 3]
+    iou3 = box_ops.iou_aabb(aabb[..., :, None, :, :], aabb[..., None, :, :, :])
+    sup_pair = (classes[..., :, None] == classes[..., None, :]) & (iou3 > iou3d_threshold)
     if use_2d:
         iou2, _ = box_ops.pairwise_box_iou(boxes_2d, boxes_2d)
         sup_pair = sup_pair | (iou2 > iou2d_threshold)
@@ -225,32 +230,35 @@ def _suppression_pairs(classes, t_co, dims, boxes_2d, iou3d_threshold: float,
 
 def nms_3d_mask(classes, scores, t_co, dims, boxes_2d, valid, iou3d_threshold: float = 0.25,
                 iou2d_threshold: float = 0.5, use_2d: bool = True) -> torch.Tensor:
-    """Greedy 3D NMS over one image's candidates -> keep mask [Q].
+    """Greedy 3D NMS over each image's candidates: [..., Q] inputs -> keep
+    mask [..., Q], one image or a batch of them at once.
 
     Greedy NMS is the unique fixed point of ``keep_i = valid_i and no kept,
     higher-ranked j conflicts with i`` (rank: higher score, then lower
     index).  The JAX package iterates the map in a while_loop until it stops
     changing, at most Q + 1 rounds.  Here it runs exactly Q + 1 rounds with no
     host sync: the map is idempotent at its fixed point, so the extra rounds
-    leave the result exact.
+    leave the result exact.  A batch runs the same Q + 1 rounds, each over
+    every image at once.
     """
-    Q = classes.shape[0]
+    Q = classes.shape[-1]
     sup_pair = _suppression_pairs(classes, t_co, dims, boxes_2d,
                                   iou3d_threshold, iou2d_threshold, use_2d)
     idx = torch.arange(Q, device=classes.device)
-    outranks = (scores[None, :] > scores[:, None]) | (
-        (scores[None, :] == scores[:, None]) & (idx[None, :] < idx[:, None]))
-    S = sup_pair & outranks & valid[None, :]
+    outranks = (scores[..., None, :] > scores[..., :, None]) | (
+        (scores[..., None, :] == scores[..., :, None]) & (idx[None, :] < idx[:, None]))
+    S = sup_pair & outranks & valid[..., None, :]
     keep = valid
     for _ in range(Q + 1):
-        keep = valid & ~(S & keep[None, :]).any(dim=-1)
+        keep = valid & ~(S & keep[..., None, :]).any(dim=-1)
     return keep
 
 
 def _nms_3d_mask_sequential(classes, scores, t_co, dims, boxes_2d, valid,
                             iou3d_threshold: float = 0.25, iou2d_threshold: float = 0.5,
                             use_2d: bool = True) -> torch.Tensor:
-    """The literal Q-step greedy sweep (equivalence oracle for tests)."""
+    """The literal Q-step greedy sweep over one image (equivalence oracle for
+    tests)."""
     Q = classes.shape[0]
     sup_pair = _suppression_pairs(classes, t_co, dims, boxes_2d,
                                   iou3d_threshold, iou2d_threshold, use_2d)
@@ -273,10 +281,10 @@ def postprocess(outputs: dict, img_w: float, img_h: float, threshold: float,
     Softmax-threshold keep, cxcywh -> xyxy pixels, 3D center = unproject(box
     center + offset) * depth, angle-bin argmax * (180 / bins) degrees, the
     fixpoint NMS, then the top ``max_dets`` by score (stable order), padded
-    with invalid slots when there are fewer queries than slots.
+    with invalid slots when there are fewer queries than slots.  ``K`` is
+    one [3, 3] intrinsic matrix for every image, or [B, 3, 3], one each.
     """
     logits = outputs["pred_logits"].float()
-    B, Q, _ = logits.shape
     dev = logits.device
     probs = torch.softmax(logits, dim=-1)[..., :-1]
     scores = probs.amax(dim=-1)
@@ -288,8 +296,9 @@ def postprocess(outputs: dict, img_w: float, img_h: float, threshold: float,
     offset = outputs["pred_offset"].float() * scale[:2]
     box_center = (boxes[..., :2] + boxes[..., 2:]) / 2.0
     shape_center = offset + box_center
-    f = torch.stack([K[0, 0], K[1, 1]])
-    cxy = torch.stack([K[0, 2], K[1, 2]])
+    Kb = K.reshape(-1, 3, 3)
+    f = torch.stack([Kb[:, 0, 0], Kb[:, 1, 1]], dim=-1)[:, None]     # [B or 1, 1, 2]
+    cxy = torch.stack([Kb[:, 0, 2], Kb[:, 1, 2]], dim=-1)[:, None]
     depth = outputs["pred_depth"].float()
     center_xy = (shape_center - cxy) / f * depth
     t_co = torch.cat([center_xy, depth], dim=-1)
@@ -298,11 +307,7 @@ def postprocess(outputs: dict, img_w: float, img_h: float, threshold: float,
     angle_deg = outputs["pred_angle"].float().argmax(dim=-1).float() * (180.0 / n_bins)
     dims = outputs["pred_size"].float()
 
-    keep = torch.stack([
-        nms_3d_mask(classes[b], scores[b], t_co[b], dims[b], boxes[b], keep[b],
-                    use_2d=use_nms_2d)
-        for b in range(B)
-    ])
+    keep = nms_3d_mask(classes, scores, t_co, dims, boxes, keep, use_2d=use_nms_2d)
 
     sort_key = torch.where(keep, -scores, torch.inf)
     order = torch.argsort(sort_key, dim=-1, stable=True)[:, :max_dets]

@@ -29,10 +29,11 @@ On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
 ``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
 ``LAUNCHES``, or raises.  ``LAUNCHES_BY_DTYPE`` and ``PLAIN_CALLS_BY_DTYPE``
 split the same counts by the dtype of q ("float32" or "bfloat16"), so a run
-can show which instantiation of a kernel it launched.  There is no fallback from one to the other.  The
-kernels stage K/V with 16-byte ``cp.async`` copies: a q, k or v whose pointer
-or strides are not 16-byte aligned is copied first, and the copy is counted
-in ``ALIGN_COPIES``.
+can show which instantiation of a kernel it launched, and
+``LAUNCHES_BY_BATCH`` splits the launches by their batch B.  There is no
+fallback from one to the other.  The kernels stage K/V with 16-byte
+``cp.async`` copies: a q, k or v whose pointer or strides are not 16-byte
+aligned is copied first, and the copy is counted in ``ALIGN_COPIES``.
 
 The library is built at first use with ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``odam_torch/_build/``, keyed by a hash
@@ -67,6 +68,7 @@ LAUNCHES = {"fused_attention": 0, "flash_attention": 0}
 PLAIN_CALLS = {"fused_attention": 0, "flash_attention": 0}
 LAUNCHES_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in LAUNCHES}
 PLAIN_CALLS_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in PLAIN_CALLS}
+LAUNCHES_BY_BATCH: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
 # Copies a wrapper made of a q, k or v that cp.async could not read as it was.
 ALIGN_COPIES = {"fused_attention": 0, "flash_attention": 0}
 
@@ -82,6 +84,8 @@ def reset_counts() -> None:
         for by_dtype in counts.values():
             for dtype in by_dtype:
                 by_dtype[dtype] = 0
+    for by_batch in LAUNCHES_BY_BATCH.values():
+        by_batch.clear()
 
 
 def _dtype_name(x: torch.Tensor) -> str:
@@ -216,6 +220,7 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_DTYPE[name][_dtype_name(q)] += 1
+    LAUNCHES_BY_BATCH[name][B] = LAUNCHES_BY_BATCH[name].get(B, 0) + 1
     return out
 
 

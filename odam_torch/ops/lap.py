@@ -138,26 +138,31 @@ def match_by_score(score: torch.Tensor, threshold: float,
 def greedy_peel_match(score: torch.Tensor, threshold: float,
                       row_mask: torch.Tensor | None = None,
                       col_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Greedy global-argmax decode: [M, N] score -> [N] int32 track ids.
+    """Greedy global-argmax decode: [..., M, N] score -> [..., N] int32 track
+    ids, each matrix of a batch on its own.
 
     Takes the highest remaining score, assigns that pair if it clears the
-    threshold, and removes its row and column; min(M, N) steps, no host sync.
+    threshold, and removes its row and column; min(M, N) steps for the whole
+    batch, no host sync.
     """
-    M, N = score.shape
-    s = score.float().clone()
+    M, N = score.shape[-2:]
+    lead = score.shape[:-2]
+    dev = score.device
+    s = score.float()
     if row_mask is not None:
-        s = torch.where(row_mask[:, None], s, -torch.inf)
+        s = torch.where(row_mask[..., :, None], s, -torch.inf)
     if col_mask is not None:
-        s = torch.where(col_mask[None, :], s, -torch.inf)
-    out = torch.full((N,), -1, dtype=torch.int32, device=score.device)
+        s = torch.where(col_mask[..., None, :], s, -torch.inf)
+    rows = torch.arange(M, device=dev)
+    cols = torch.arange(N, device=dev)
+    out = torch.full(lead + (N,), -1, dtype=torch.int32, device=dev)
     for _ in range(min(M, N)):
-        # 1-element index tensors keep every step on the device
-        flat = torch.argmax(s.reshape(-1)).reshape(1)
+        # index tensors of one element a matrix keep every step on the device
+        flat = torch.argmax(s.reshape(lead + (M * N,)), dim=-1, keepdim=True)
         r, c = flat // N, flat % N
-        ok = s.reshape(-1).gather(0, flat) > threshold
-        out.index_put_((c,), torch.where(ok, r.int(), out.gather(0, c)))
-        s.index_fill_(0, r, -torch.inf)
-        s.index_fill_(1, c, -torch.inf)
+        ok = s.reshape(lead + (M * N,)).gather(-1, flat) > threshold
+        out = torch.where((cols == c) & ok, r.int(), out)
+        s = s.masked_fill((rows == r)[..., :, None] | (cols == c)[..., None, :], -torch.inf)
     if col_mask is not None:
         out = torch.where(col_mask, out, -1)
     return out.int()

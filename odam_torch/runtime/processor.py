@@ -10,6 +10,8 @@ dual-conic bbox of the mean ellipsoid), the associator (GNN + Sinkhorn),
 and the static-shape track-store update with its FrameLog.  The step splits
 after the detector: :func:`detect_frame` and :func:`track_step`, so that
 the offline mode (:mod:`odam_torch.runtime.offline`) shares the tracking.
+:func:`lane_step_body` is the step of P scenes at once, stacked on a lane
+axis (:mod:`odam_torch.runtime.scene_parallel`).
 
 Two places differ from the JAX step, both on purpose:
 
@@ -38,10 +40,12 @@ import math
 import os
 import pickle
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 from torch.profiler import record_function
 
 from .. import resolve_device
@@ -85,20 +89,25 @@ class PipelineConfig:
 class FrameResult(NamedTuple):
     store: tracker.TrackStore
     log: tracker.FrameLog
-    n_detections: torch.Tensor   # [] int32, on the device
+    n_detections: torch.Tensor   # [] int32, on the device ([P] in the lane step)
 
 
-def detection_rows_camera(dets: detr_mod.Detections, frame_id: float, img_w: float,
-                          img_h: float) -> torch.Tensor:
+def detection_rows_camera(dets: detr_mod.Detections, frame_id: float | torch.Tensor,
+                          img_w: float, img_h: float) -> torch.Tensor:
     """The 79-dim camera-frame detection rows of image 0:
     [frame_id, class, bbox_norm(4), dims(3), t_co(3), sin azi, cos azi,
-    score, code(64) = -1]; invalid slots are -1."""
+    score, code(64) = -1]; invalid slots are -1.  ``frame_id`` is a number
+    or a float32 tensor of one element."""
     b = 0
     N = dets.valid.shape[1]
     dev = dets.valid.device
     angle_rad = dets.angle_deg[b] * (math.pi / 180.0)
+    if isinstance(frame_id, torch.Tensor):
+        fid = frame_id.reshape(1, 1).expand(N, 1)
+    else:
+        fid = torch.full((N, 1), float(frame_id), device=dev)
     rows = torch.cat([
-        torch.full((N, 1), float(frame_id), device=dev),
+        fid,
         dets.classes[b][:, None].float(),
         dets.boxes[b] / box_ops.xyxy_scale(img_w, img_h, dev),
         dets.dims[b],
@@ -202,11 +211,8 @@ def update_tracks(cfg: PipelineConfig, associator: Associator, store: tracker.Tr
     associator runs and unmatched detections are gated on the dustbin row.
     Slots matched this frame are protected from eviction.
     """
-    T_cap = store.capacity
-    dev = det79.device
     if not has_tracks:
-        store, slots = tracker.assign_new_slots(store, det_valid)
-        ok = det_valid & (slots >= 0)
+        store, slots, ok = _spawn(store, det_valid)
     else:
         with record_function("odam.track_inputs"):
             tracks79 = prepare_track_inputs(store, T_wc, K, img_w, img_h,
@@ -214,29 +220,55 @@ def update_tracks(cfg: PipelineConfig, associator: Associator, store: tracker.Tr
         with record_function("odam.associator"):
             out = associator(tracks79[None], store.active[None], det79[None],
                              det_valid[None], cfg.match_threshold)
-        Z = out.log_assignment[0]
-        match = out.matches[0].long()
-        N = match.shape[0]
-        matched = match >= 0
-        gate_row = torch.where(matched, match, T_cap)
-        gate = torch.exp(Z[gate_row, torch.arange(N, device=dev)])
-        attach_ok = det_valid & (gate >= cfg.score_threshold)
-        is_new = attach_ok & ~matched
-        matched_mask = tracker.scatter_drop(
-            torch.zeros(T_cap, dtype=torch.bool, device=dev), gate_row, torch.ones_like(matched))
-        store, new_slots = tracker.assign_new_slots(store, is_new, protected=matched_mask)
-        slots = torch.where(matched, match.int(), new_slots)
-        ok = attach_ok & (slots >= 0)
+        store, slots, ok = _attach(cfg, store, out.log_assignment[0], out.matches[0], det_valid)
     store = tracker.append_rows(store, det82, slots, ok)
-    ids = torch.where(ok, store.track_id[torch.clamp(slots.long(), 0, T_cap - 1)], -1)
-    return store, tracker.log_frame(log, det82, ids)
+    return store, tracker.log_frame(log, det82, _attached_ids(store, slots, ok))
+
+
+def _spawn(store: tracker.TrackStore, det_valid: torch.Tensor
+           ) -> tuple[tracker.TrackStore, torch.Tensor, torch.Tensor]:
+    """The empty store's branch: every valid detection spawns a track.
+    Returns (store, slots [N], attached [N])."""
+    store, slots = tracker.assign_new_slots(store, det_valid)
+    return store, slots, det_valid & (slots >= 0)
+
+
+def _attach(cfg: PipelineConfig, store: tracker.TrackStore, Z: torch.Tensor,
+            match: torch.Tensor, det_valid: torch.Tensor
+            ) -> tuple[tracker.TrackStore, torch.Tensor, torch.Tensor]:
+    """The association branch after the associator: a detection attaches to
+    its match, or spawns a track when unmatched, if its assignment score
+    (the dustbin row's when unmatched) clears ``score_threshold``; matched
+    slots are protected from eviction.  Z [T+1, N+1] log assignment, match
+    [N].  Returns (store, slots [N], attached [N])."""
+    T_cap = store.capacity
+    dev = Z.device
+    match = match.long()
+    matched = match >= 0
+    gate_row = torch.where(matched, match, T_cap)
+    gate = torch.exp(Z[gate_row, torch.arange(match.shape[0], device=dev)])
+    attach_ok = det_valid & (gate >= cfg.score_threshold)
+    is_new = attach_ok & ~matched
+    matched_mask = tracker.scatter_drop(
+        torch.zeros(T_cap, dtype=torch.bool, device=dev), gate_row, torch.ones_like(matched))
+    store, new_slots = tracker.assign_new_slots(store, is_new, protected=matched_mask)
+    slots = torch.where(matched, match.int(), new_slots)
+    return store, slots, attach_ok & (slots >= 0)
+
+
+def _attached_ids(store: tracker.TrackStore, slots: torch.Tensor, ok: torch.Tensor
+                  ) -> torch.Tensor:
+    """The global track id each detection was logged under, -1 where none."""
+    T_cap = store.capacity
+    return torch.where(ok, store.track_id[torch.clamp(slots.long(), 0, T_cap - 1)], -1)
 
 
 def detect_frame(cfg: PipelineConfig, detr: DETR, images: torch.Tensor, K: torch.Tensor,
-                 img_w: float, img_h: float) -> detr_mod.Detections:
-    """DETR forward and postprocess on normalized [B, H, W, 3] frames."""
+                 img_w: float, img_h: float, lanes: int = 1) -> detr_mod.Detections:
+    """DETR forward and postprocess on normalized [B, H, W, 3] frames; K is
+    [3, 3] or one per frame, [B, 3, 3]; ``lanes`` as in ``DETR.forward``."""
     with record_function("odam.detr"):
-        outputs = detr(images)
+        outputs = detr(images, lanes=lanes)
     with record_function("odam.postprocess"):
         return detr_mod.postprocess(outputs, img_w, img_h, cfg.detect_threshold, K,
                                     max_dets=cfg.max_dets)
@@ -274,6 +306,87 @@ def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
     dets = detect_frame(cfg, detr, image[None], K, img_w, img_h)
     return track_step(cfg, associator, store, log, dets, frame_id, T_wc, K, img_w, img_h,
                       has_tracks)
+
+
+# ---------------------------------------------------------------- lane step
+#
+# P scenes advance one frame each in one step, every tensor with a leading
+# lane axis.  JAX vmaps its one-scene step over the lanes; here the models
+# run at batch P (the attention routed on the lane's batch, so each lane's
+# calls take the kernels its JAX counterpart takes), the row and track
+# functions are the one-scene functions under ``torch.func.vmap``, and
+# JAX's ``lax.cond`` on ``store.count > 0``, a select under ``vmap``, is a
+# select here too: both branches run for every lane.  So the lane step needs
+# no store-count flag, and with the exact decode its one blocking read a
+# frame is the associator's packed copy of every lane's assignment.
+
+def detection_rows_camera_lanes(dets: detr_mod.Detections, frame_ids: torch.Tensor,
+                                img_w: float, img_h: float) -> torch.Tensor:
+    """:func:`detection_rows_camera` of each lane's image: detections of
+    batch P, frame_ids [P] float32 -> [P, N, 79]."""
+    per_lane = detr_mod.Detections(*[x[:, None] for x in dets])
+    return vmap(detection_rows_camera, in_dims=(0, 0, None, None))(per_lane, frame_ids,
+                                                                    img_w, img_h)
+
+
+lift_rows_to_world_lanes = vmap(lift_rows_to_world, in_dims=(0, 0, 0, None, None, None))
+prepare_track_inputs_lanes = vmap(prepare_track_inputs,
+                                  in_dims=(0, 0, 0, None, None, None, None))
+
+
+def _where_lanes(cond: torch.Tensor, new, old):
+    """Per lane, ``new`` where ``cond`` [P] is set and ``old`` elsewhere, for
+    a tensor or a NamedTuple of tensors with a leading lane axis."""
+    if isinstance(new, tuple):
+        return type(new)(*[_where_lanes(cond, a, b) for a, b in zip(new, old)])
+    return torch.where(cond.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def update_tracks_lanes(cfg: PipelineConfig, associator: Associator,
+                        stores: tracker.TrackStore, logs: tracker.FrameLog,
+                        det79: torch.Tensor, det82: torch.Tensor, det_valid: torch.Tensor,
+                        T_wcs: torch.Tensor, Ks: torch.Tensor, img_w: float, img_h: float,
+                        valid: torch.Tensor) -> tuple[tracker.TrackStore, tracker.FrameLog]:
+    """:func:`update_tracks` for P lanes at once.  The associator runs for
+    every lane, each lane takes its association branch if its store holds a
+    track and its spawn branch if not, and a lane whose ``valid`` is unset
+    (a padded frame) keeps its store and log as they were."""
+    with record_function("odam.track_inputs"):
+        tracks79 = prepare_track_inputs_lanes(stores, T_wcs, Ks, img_w, img_h,
+                                              cfg.track_bbox_samples, cfg.track_bbox_mode)
+    with record_function("odam.associator"):
+        out = associator(tracks79, stores.active, det79, det_valid, cfg.match_threshold,
+                         lanes=det79.shape[0])
+    attached = vmap(partial(_attach, cfg))(stores, out.log_assignment, out.matches, det_valid)
+    spawned = vmap(_spawn)(stores, det_valid)
+    has_tracks = stores.count > 0
+    store, slots, ok = (_where_lanes(has_tracks, a, b) for a, b in zip(attached, spawned))
+    store = tracker.append_rows_lanes(store, det82, slots, ok)
+    ids = vmap(_attached_ids)(store, slots, ok)
+    return (_where_lanes(valid, store, stores),
+            tracker.log_frame_lanes(logs, det82, ids, valid))
+
+
+def lane_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
+                   stores: tracker.TrackStore, logs: tracker.FrameLog, images: torch.Tensor,
+                   frame_ids: torch.Tensor, T_wcs: torch.Tensor, Ks: torch.Tensor,
+                   img_w: float, img_h: float, valid: torch.Tensor) -> FrameResult:
+    """One step of P scenes: normalized images [P, H, W, 3] (in the model's
+    dtype), frame_ids [P] float32, T_wcs [P, 4, 4], Ks [P, 3, 3], valid [P]
+    bool, stores and logs with a leading lane axis.  Each lane gets what
+    :func:`frame_step_body` gives its scene; a lane whose frame is padding
+    (``valid`` unset) keeps its store and log and counts 0 detections."""
+    P = images.shape[0]
+    dets = detect_frame(cfg, detr, images, Ks, img_w, img_h, lanes=P)
+    with record_function("odam.postprocess"):
+        det_valid = dets.valid
+        det79 = detection_rows_camera_lanes(dets, frame_ids, img_w, img_h)
+        det82 = lift_rows_to_world_lanes(det79, det_valid, T_wcs, img_w, img_h, cfg.no_code)
+    with record_function("odam.track_update"):
+        store, log = update_tracks_lanes(cfg, associator, stores, logs, det79, det82,
+                                         det_valid, T_wcs, Ks, img_w, img_h, valid)
+    n_detections = torch.where(valid, det_valid.sum(dim=-1), 0).to(torch.int32)
+    return FrameResult(store=store, log=log, n_detections=n_detections)
 
 
 def device_images(images, device: torch.device, mean: torch.Tensor, std: torch.Tensor,

@@ -9,6 +9,12 @@ The store functions return new NamedTuples, as in JAX.  ``log_frame``
 writes into the log's buffers in place (the log is 59 MB at the default
 6000 frames, too large to copy every frame) and returns them.
 
+The ``*_lanes`` functions serve the scene-parallel step: P stores and logs
+stacked on a leading lane axis.  The store's are the one-scene functions
+under ``torch.func.vmap``, one batched launch an op for all lanes; the log's
+write is written out, since it is in place and a lane whose frame is padding
+must keep its log untouched (JAX selects the old log after the step).
+
 Track row layout (82 columns): 0 frame_id | 1 class | 2:6 bbox xyxy (pixels)
 | 6:9 dims | 9:12 t_wo | 12 azi_wo | 13 score | 14:78 code | 78:82
 projected bbox (pixels).
@@ -19,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 TRACK_DIM = 82
 
@@ -77,11 +84,11 @@ def scatter_drop(base: torch.Tensor, index: torch.Tensor, values: torch.Tensor) 
     Indices below len(base) must be unique.
 
     JAX drops out-of-range scatters (mode="drop"); on CUDA torch would assert,
-    so dropped rows go to one spare row that is cut off.
+    so dropped rows go to one spare row that is cut off.  Out of place, so
+    that ``vmap`` can batch it over a base that is not batched.
     """
     pad = torch.cat([base, base[:1]], dim=0)
-    pad[index] = values.to(base.dtype)
-    return pad[:-1]
+    return pad.index_put((index,), values.to(base.dtype))[:-1]
 
 
 def append_rows(store: TrackStore, rows: torch.Tensor, slots: torch.Tensor,
@@ -231,3 +238,57 @@ def drain_log(log: FrameLog) -> dict[int, np.ndarray]:
     uniq, starts = np.unique(ids, return_index=True)
     bounds = np.append(starts, len(ids))
     return {int(u): rows[bounds[i]:bounds[i + 1]] for i, u in enumerate(uniq)}
+
+
+# -------------------------------------------------------------------- lanes
+
+def stack_lanes(items: list) -> tuple:
+    """One NamedTuple of tensors (a store or a log) per lane -> one NamedTuple
+    with a leading lane axis."""
+    return type(items[0])(*[torch.stack(xs) for xs in zip(*items)])
+
+
+def lane_of(tree: tuple, i: int) -> tuple:
+    """Lane ``i`` of a lane-stacked NamedTuple."""
+    return type(tree)(*[x[i] for x in tree])
+
+
+def init_store_lanes(lanes: int, max_tracks: int, window: int, device) -> TrackStore:
+    return stack_lanes([init_store(max_tracks, window, device)] * lanes)
+
+
+def init_log_lanes(lanes: int, max_frames: int, max_dets: int, device) -> FrameLog:
+    return stack_lanes([init_log(max_frames, max_dets, device)] * lanes)
+
+
+mean_state_lanes = vmap(mean_state)
+append_rows_lanes = vmap(append_rows)
+
+
+def assign_new_slots_lanes(stores: TrackStore, is_new: torch.Tensor,
+                           protected: torch.Tensor | None = None
+                           ) -> tuple[TrackStore, torch.Tensor]:
+    """:func:`assign_new_slots` for each lane: is_new [P, N], protected [P, T]."""
+    if protected is None:
+        return vmap(assign_new_slots)(stores, is_new)
+    return vmap(assign_new_slots)(stores, is_new, protected)
+
+
+def log_frame_lanes(logs: FrameLog, rows: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor) -> FrameLog:
+    """:func:`log_frame` for each lane whose ``valid`` [P] is set, in place:
+    rows [P, N, 82], ids [P, N].  A lane whose frame is padding keeps its
+    rows, ids, count and ``n_lost``; a full lane drops the frame into
+    ``n_lost``, as one scene does."""
+    cap = logs.rows.shape[1]
+    lane = torch.arange(rows.shape[0], device=rows.device)
+    full = logs.count >= cap
+    write = valid & ~full
+    idx = torch.clamp(logs.count, max=cap - 1).long()
+    write_rows = torch.where(write[:, None, None], rows, logs.rows[lane, idx])
+    write_ids = torch.where(write[:, None], ids.to(torch.int32), logs.ids[lane, idx])
+    logs.rows.index_put_((lane, idx), write_rows)
+    logs.ids.index_put_((lane, idx), write_ids)
+    count = torch.where(valid, torch.clamp(logs.count + 1, max=cap), logs.count)
+    return logs._replace(count=count.to(torch.int32),
+                         n_lost=(logs.n_lost + (valid & full).to(torch.int32)).to(torch.int32))

@@ -12,7 +12,12 @@ then ``optim_process``, ``merge_process`` and ``optim_process`` again;
 then tracks over the cached detections.  ``--profile fast`` selects the
 greedy decode and the closed-form track boxes, ``--solver lm`` the LM
 mapping solve with its Adam fallback, ``--device_resize`` ships raw uint8
-frames and resizes them on the device.
+frames and resizes them on the device.  ``--scene_parallel P`` runs P
+scenes at once as lanes of one batched step
+(:mod:`odam_torch.runtime.scene_parallel`), each group of P scenes to the
+same pickles; as in JAX, it takes precedence over ``--offline``, and its
+frames are resized on the host to uint8 (PIL bilinear) and normalized on
+the device, so ``--device_resize`` does nothing there.
 
 It runs on the card unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16, as the JAX CLI does: the models compute in bf16 with float32
@@ -22,8 +27,7 @@ so float32 stays float32 on the card.  ``--use_pallas`` selects the
 attention kernels (``use_kernels``): ``on`` and ``auto`` launch them on the
 card, and on the CPU run the wrappers' plain versions, so a CPU run takes
 the card's routing call for call; ``off`` takes the plain path of
-``mha_core``, as JAX's ``off`` does.  ``--scene_parallel`` exits with code
-2 and names the ROADMAP item that ports it.
+``mha_core``, as JAX's ``off`` does.
 """
 from __future__ import annotations
 
@@ -40,13 +44,6 @@ import torch
 from .. import config as config_mod
 from .. import resolve_device
 from ..data import loader, scannet, transforms
-
-# flag -> the ROADMAP item that ports it
-UNPORTED = {
-    "scene_parallel": "--scene_parallel needs runtime/scene_parallel.py and parallel/mesh.py "
-                      "(ROADMAP Queue 1 items 9 and 11)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -114,16 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard", default=None,
                     help="'i/n': process scenes i, i+n, i+2n, ...")
     ap.add_argument("--scene_parallel", type=int, default=0,
-                    help="one scene per device (not ported yet: exits with code 2)")
+                    help="run P scenes at once as lanes of one batched step on the device "
+                         "(takes precedence over --offline; frames resized on the host)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     return ap
-
-
-def unported(args) -> list[str]:
-    """The ROADMAP messages of every selected path the port does not have."""
-    picked = {"scene_parallel": bool(args.scene_parallel)}
-    return [UNPORTED[k] for k, on in picked.items() if on]
 
 
 def load_weights(path: str, what: str, from_pth) -> dict | None:
@@ -171,12 +163,10 @@ def build_models(cfg, detector_ckpt: str, associator_ckpt: str, decode: str, dev
     return detr, assoc
 
 
-def run_scene(pipe, index, seq_id: str, args, detector=None) -> tuple[dict, int, int]:
-    """One scene, frames to the final solve: (result, frames, tracks).
-
-    Online: the per-frame step, then optim -> merge -> optim.  Offline
-    (``detector`` given, ``pipe`` a CachedDetectionPipeline): every usable
-    frame is loaded, detected in batches, then tracked and mapped."""
+def scene_header(index, seq_id: str, args) -> tuple[list[str], np.ndarray, np.ndarray,
+                                                    int, int]:
+    """(frame names, K scaled to the resize, axis alignment, resized height,
+    resized width) of one scene, the first ``--max_frames`` frames."""
     from PIL import Image
 
     K = scannet.read_intrinsic(index.intrinsic_path(seq_id))[:3, :3]
@@ -190,6 +180,16 @@ def run_scene(pipe, index, seq_id: str, args, detector=None) -> tuple[dict, int,
     K_scaled = K.copy()
     K_scaled[0] *= iw / first.shape[1]
     K_scaled[1] *= ih / first.shape[0]
+    return frames, K_scaled, axis_align, ih, iw
+
+
+def run_scene(pipe, index, seq_id: str, args, detector=None) -> tuple[dict, int, int]:
+    """One scene, frames to the final solve: (result, frames, tracks).
+
+    Online: the per-frame step, then optim -> merge -> optim.  Offline
+    (``detector`` given, ``pipe`` a CachedDetectionPipeline): every usable
+    frame is loaded, detected in batches, then tracked and mapped."""
+    frames, K_scaled, axis_align, ih, iw = scene_header(index, seq_id, args)
 
     if args.device_resize:
         preprocess = None         # raw uint8; resize and normalize in the step
@@ -221,31 +221,80 @@ def run_scene(pipe, index, seq_id: str, args, detector=None) -> tuple[dict, int,
     return out, n_frames, n_tracks
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    fast = args.profile == "fast"
-    decode = args.decode if args.decode != "profile" else ("greedy" if fast else "exact")
-    track_bbox = args.track_bbox if args.track_bbox != "profile" else (
-        "exact" if fast else "sampled")
-    missing = unported(args)
-    if missing:
-        print("not ported yet:\n  " + "\n  ".join(missing), file=sys.stderr)
-        return 2
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # float32 means float32 in both dtypes (the stages after the models
-        # are float32): cuDNN runs convolutions in TF32 by default
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+class LazyFrames:
+    """A scene's frames, read and resized (PIL bilinear, to uint8) when
+    indexed: the lanes read each frame once, in order, so a group holds P
+    frames at a time and not P scenes."""
 
-    from ..runtime import offline
+    def __init__(self, index, seq_id: str, names: list[str], ih: int, iw: int):
+        self.index = index
+        self.seq_id = seq_id
+        self.names = names
+        self.size = (iw, ih)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(self.index.image_path(self.seq_id, self.names[i]))
+        return np.asarray(img.resize(self.size, Image.BILINEAR))
+
+
+def scene_inputs(index, seq_id: str, args) -> dict:
+    """One scene as the lanes take it: lazily resized uint8 frames, the
+    frame ids and world poses of the frames with a finite pose, K scaled to
+    the resize, and the resized (height, width)."""
+    names, K_scaled, axis_align, ih, iw = scene_header(index, seq_id, args)
+    fids, T_wcs, keep = [], [], []
+    for name in names:
+        T_cw = scannet.read_extrinsic(index.pose_path(seq_id, name))
+        if np.isnan(T_cw).any():
+            continue                     # NaN poses skipped
+        keep.append(name)
+        fids.append(int(name))
+        T_wcs.append(axis_align @ np.linalg.inv(T_cw))
+    return {"frames": LazyFrames(index, seq_id, keep, ih, iw), "frame_ids": fids,
+            "T_wcs": T_wcs, "K": K_scaled, "seq_id": seq_id, "size": (ih, iw)}
+
+
+def run_scene_parallel(args, index, scene_list: list[str], runner) -> None:
+    """``--scene_parallel P``: the scenes in groups of P through ``runner``
+    (a :class:`odam_torch.runtime.scene_parallel.SceneParallelRunner`), each
+    group's pickles written as the serial loop writes them."""
+    pending = []
+    for seq_id in scene_list:
+        if args.resume and os.path.exists(os.path.join(args.out_dir, seq_id, seq_id)):
+            print(f"skipping (resume): {seq_id}")
+        else:
+            pending.append(seq_id)
+    P = runner.n_lanes
+    for start in range(0, len(pending), P):
+        group = [scene_inputs(index, seq_id, args) for seq_id in pending[start:start + P]]
+        ih, iw = group[-1]["size"]
+        t0 = time.time()
+        outs = runner.run_scenes(group, float(ih), float(iw))
+        seconds = time.time() - t0
+        n_frames = sum(len(s["frame_ids"]) for s in group)
+        print(f"group of {len(group)} scenes: {n_frames} frames in {seconds:.1f}s "
+              f"({n_frames / max(seconds, 1e-6):.1f} fps aggregate)")
+        for s, out in zip(group, outs):
+            seq_id = s["seq_id"]
+            os.makedirs(os.path.join(args.out_dir, seq_id), exist_ok=True)
+            with open(os.path.join(args.out_dir, seq_id, seq_id), "wb") as f:
+                pickle.dump({k: out[k] for k in ("tracks", "bboxes_qc", "bboxes_dl", "quadrics")},
+                            f)
+            print(f"  {seq_id}: {len(out['tracks'])} tracks")
+
+
+def pipeline_config(args):
+    """The PipelineConfig that the flags select."""
     from ..runtime import processor as proc_mod
 
-    cfg = config_mod.merge_cfg([args.config_path])
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
-    detr, assoc = build_models(cfg, args.detector_ckpt, args.associator_ckpt, decode, device,
-                               dtype, use_kernels=args.use_pallas != "off")
-    pcfg = proc_mod.PipelineConfig(
+    track_bbox = args.track_bbox if args.track_bbox != "profile" else (
+        "exact" if args.profile == "fast" else "sampled")
+    return proc_mod.PipelineConfig(
         detect_threshold=args.detect_threshold,
         score_threshold=args.attach_threshold,
         representation=args.representation,
@@ -260,13 +309,27 @@ def main(argv: list[str] | None = None) -> int:
         max_views=args.max_views,
         window=args.window,
     )
-    detector = None
-    if args.offline:
-        detector = offline.BatchedDetector(detr, pcfg, batch_size=args.detect_batch,
-                                           device=device)
-        pipe = offline.CachedDetectionPipeline(assoc, pcfg, device=device)
-    else:
-        pipe = proc_mod.OdamPipeline(detr, assoc, pcfg, device=device)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    fast = args.profile == "fast"
+    decode = args.decode if args.decode != "profile" else ("greedy" if fast else "exact")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # float32 means float32 in both dtypes (the stages after the models
+        # are float32): cuDNN runs convolutions in TF32 by default
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    from ..runtime import offline
+    from ..runtime import processor as proc_mod
+
+    cfg = config_mod.merge_cfg([args.config_path])
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
+    detr, assoc = build_models(cfg, args.detector_ckpt, args.associator_ckpt, decode, device,
+                               dtype, use_kernels=args.use_pallas != "off")
+    pcfg = pipeline_config(args)
 
     sequences = None
     if args.sequences:
@@ -278,6 +341,22 @@ def main(argv: list[str] | None = None) -> int:
         i, n = (int(x) for x in args.shard.split("/"))
         scene_list = scene_list[i::n]
         print(f"shard {i}/{n}: {len(scene_list)} scenes")
+
+    if args.scene_parallel:
+        from ..runtime import scene_parallel
+
+        runner = scene_parallel.SceneParallelRunner(detr, assoc, pcfg, args.scene_parallel,
+                                                    device=device)
+        run_scene_parallel(args, index, scene_list, runner)
+        return 0
+
+    detector = None
+    if args.offline:
+        detector = offline.BatchedDetector(detr, pcfg, batch_size=args.detect_batch,
+                                           device=device)
+        pipe = offline.CachedDetectionPipeline(assoc, pcfg, device=device)
+    else:
+        pipe = proc_mod.OdamPipeline(detr, assoc, pcfg, device=device)
 
     for seq_id in scene_list:
         out_dir = os.path.join(args.out_dir, seq_id)

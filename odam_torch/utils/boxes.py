@@ -29,14 +29,15 @@ def box_area(box: torch.Tensor) -> torch.Tensor:
 
 def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pairwise IoU of xyxy boxes: [N, 4] x [M, 4] -> ([N, M] IoU, [N, M] union)."""
+    """Pairwise IoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> ([..., N, M]
+    IoU, [..., N, M] union)."""
     area1 = box_area(boxes1)
     area2 = box_area(boxes2)
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    union = area1[:, None] + area2[None, :] - inter
+    union = area1[..., :, None] + area2[..., None, :] - inter
     return inter / union, union
 
 

@@ -131,14 +131,6 @@ def test_f1_tables_equal(chains, capsys):
     assert "average: precision 0.7500 recall 0.4286 F1 0.5455" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--scene_parallel", "2"], "items 9 and 11"),
-])
-def test_unported_flags_exit_with_their_roadmap_item(flags, item, capsys):
-    assert t_run.main(flags + ["--device", "cpu"]) == 2
-    assert f"ROADMAP Queue 1 {item}" in capsys.readouterr().err
-
-
 def test_cli_runs_on_the_card_unless_told(monkeypatch, tmp_path):
     """Without ``--device cpu`` and without a card, the CLI raises before it
     reads anything; ``--decode greedy`` and ``--profile fast --track_bbox

@@ -25,11 +25,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_odam_tpu():
     mods = _modules()
     assert len(mods) >= 20
-    training = {"odam_torch.models." + m for m in ("matcher", "criterion", "training")}
-    training |= {"odam_torch.data.datasets", "odam_torch.utils.checkpoint",
+    required = {"odam_torch.models." + m for m in ("matcher", "criterion", "training")}
+    required |= {"odam_torch.data.datasets", "odam_torch.utils.checkpoint",
                  "odam_torch.utils.metrics", "odam_torch.scripts.train_detector",
-                 "odam_torch.scripts.train_associator"}
-    assert training <= set(mods), training - set(mods)
+                 "odam_torch.scripts.train_associator", "odam_torch.runtime.scene_parallel"}
+    assert required <= set(mods), required - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
