@@ -73,7 +73,15 @@ Phases, each printed as one JSON line on stdout:
     batch 8, no host sync);
 16. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
     --synthetic --steps 3`` on the card, their checkpoints through
-    ``run_processor.build_models`` and a 2-frame ``run_processor`` run.
+    ``run_processor.build_models`` and a 2-frame ``run_processor`` run;
+17. dist_nccl, dist_gloo2: ``odam_torch.scripts.dryrun_distributed``'s six
+    stages at full width on 1 NCCL rank and on 2 gloo ranks sharing the
+    card, each rank held to the same stages in one process, with step
+    times, the gradient all-reduce, peak memory, launches by stage and the
+    lanes' aggregate frames/s at P = 8 (1 x 8 here, 2 x 4 over the ranks);
+18. cli_dist: ``run_processor --scene_parallel 4`` and ``train_detector``
+    on 2 gloo ranks under ``python -m torch.distributed.run``: the scene
+    phase's F1 table, and the checkpoint read by ``run_processor``.
 
 Then the kernel table with the launch counts of every path, the card's name and power limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
@@ -2118,6 +2126,172 @@ def train_cli_run(out_root: str = os.path.join("runs", "train_cli"),
     return report, counts
 
 
+DIST_SIZE = "full"                 # dryrun_distributed's full-width models
+DIST_TIMEOUT_S = 600.0             # a spawned job's ranks in all: a hung collective fails
+
+
+def _dist_rank(report: dict, on_card: bool) -> dict:
+    """One rank's numbers of a dryrun_distributed job."""
+    lanes = report["lanes"]
+    ar = report["detr_train"].get("allreduce_ms")
+    return {"rank": report.get("rank", 0), "seconds": report["seconds"],
+            "train_step_ms": {"detr": report["detr_train"]["step_ms"],
+                              "assoc": report["assoc_train"]["step_ms"]},
+            "grad_allreduce_ms": ar,
+            "grad_allreduce_ms_median": None if ar is None else float(np.median(ar)),
+            "grad_allreduce_floats": report["detr_train"]["trained_floats"],
+            "peak_bytes_by_stage": report["peak_bytes"],
+            "lanes_this_rank": lanes["lanes_this_rank"],
+            "launches_by_stage": {k: report[k]["launches" if on_card else "plain_calls"]
+                                  for k in ("detect", "lanes")},
+            "lanes_launches_by_batch": lanes["launches_by_batch"],
+            "lane_rate": report.get("lane_rate")}
+
+
+def dist_runs(out_root: str = os.path.join("runs", "dist"), device: str = "cuda",
+              size: str = DIST_SIZE) -> tuple[list[dict], dict]:
+    """dist_nccl and dist_gloo2: ``odam_torch.scripts.dryrun_distributed``'s
+    six stages (the dp detector and associator train steps, the sharded
+    batched detector, the mp solve, the collectives, the scene lanes over
+    the ranks) and its lane-rate stage, with ``size``'s full-width models,
+    on 1 NCCL rank and on 2 gloo ranks that share the card (NCCL refuses two
+    ranks on one card), each rank held to the same stages run here in one
+    process without a group (``dryrun_distributed.compare``: losses rtol
+    1e-6, gradients within 1e-4 of the largest, parameters after 3 steps
+    within 1e-5, lane rows 1e-3, every integer output exact).  Both kernels
+    must launch on each rank's lanes, at B = the rank's lanes only (the
+    kernels' checks hold them to their plain versions at those shapes).
+    Each rank reports its step times, the all-reduce of one detector step's
+    gradient timed alone, peak memory and launches by stage: two ranks on
+    one card, not a speed-up."""
+    from odam_torch.scripts import dryrun_distributed as dry
+
+    on_card = torch.device(device).type == "cuda"
+    stages = dry.STAGES + ("lane_rate",)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    reference = dry.run_stages(size, device, None, stages)
+    ref_seconds = time.perf_counter() - t0
+    _reset_peak(device)
+    reports, paths = [], {}
+    for phase, world, backend in (("dist_nccl", 1, "nccl" if on_card else "gloo"),
+                                  ("dist_gloo2", 2, "gloo")):
+        out_dir = os.path.join(out_root, phase)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        ranks = dry.wait(dry.start(world, backend, device, size, out_dir, stages), out_dir,
+                         DIST_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        parity = dry.compare(reference, ranks)
+        per_rank = [_dist_rank(rep, on_card) for _, rep in ranks]
+        for r, rank in enumerate(per_rank):
+            lanes = rank["launches_by_stage"]["lanes"]
+            # the tiny CPU rehearsal's images are too small for the flash kernel
+            if any(n == 0 for n in (lanes.values() if on_card else [sum(lanes.values())])):
+                raise AssertionError(f"{phase} rank {r}: a kernel was never launched on its "
+                                     f"lanes: {lanes}")
+            batches = {b for by in rank["lanes_launches_by_batch"].values() for b in by}
+            if on_card and batches != {str(rank["lanes_this_rank"])}:
+                raise AssertionError(f"{phase} rank {r}: launches by batch "
+                                     f"{rank['lanes_launches_by_batch']}")
+            paths[f"{phase}_rank{r}"] = lanes
+        rates = [rank["lane_rate"]["aggregate_frames_per_s"] for rank in per_rank]
+        reports.append({
+            "phase": phase, "world": world, "backend": backend, "size": size,
+            "seconds": seconds, "note": ("one rank through a real process group" if world == 1
+                                         else "two ranks sharing one card: not a speed-up"),
+            "ranks": per_rank, "parity": parity, "tol": dry.TOL,
+            "lane_rate_aggregate_frames_per_s": min(rates),
+            "lane_rate_split": f"{world} x {per_rank[0]['lane_rate']['lanes_this_rank']}"})
+        shutil.rmtree(out_dir, ignore_errors=True)     # hundreds of MB of npz a rank
+    one = _dist_rank(reference[1], on_card)
+    reports[0]["one_process"] = {
+        "seconds": ref_seconds, "train_step_ms": one["train_step_ms"],
+        "peak_bytes_by_stage": one["peak_bytes_by_stage"],
+        "launches_by_stage": one["launches_by_stage"],
+        "lane_rate_aggregate_frames_per_s":
+            reference[1]["lane_rate"]["aggregate_frames_per_s"],
+        "lane_rate_split": f"1 x {reference[1]['lane_rate']['lanes']}"}
+    return reports, paths
+
+
+def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"),
+                 device: str = "cuda", n_lanes: int = 4, ranks: int = 2,
+                 extra_train: tuple[str, ...] = (), short_side: int = 512) -> dict:
+    """Both CLIs on ``ranks`` gloo ranks under ``python -m
+    torch.distributed.run``: ``run_processor --scene_parallel 4`` on the hard
+    split with the scene phase's flags, then ``eval_scan2cad``, whose F1
+    table must equal the scene phase's; then 3 steps of ``train_detector
+    --synthetic`` (its defaults: batch 8, 512x672, bf16), whose ``ckpt_3``
+    a 2-frame ``run_processor`` reads."""
+    import pickle
+
+    from odam_torch.scripts import eval_scan2cad
+    from odam_torch.utils import checkpoint
+
+    shutil.rmtree(out_root, ignore_errors=True)
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(ranks), "-m"]
+
+    def run(argv, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run(launch + argv, capture_output=True, text=True,
+                              timeout=DIST_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} on {ranks} ranks failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    scene_ids, flags = _scene_flags()
+    result_dir = os.path.join(out_root, "result")
+    stdout, sp_seconds = run(["odam_torch.scripts.run_processor", *flags, "--out_dir",
+                              result_dir, "--device", device, "--scene_parallel", str(n_lanes),
+                              "--dist_backend", "gloo"], "run_processor")
+    f1 = eval_scan2cad.main(["--result_dir", result_dir,
+                             "--scan2cad", os.path.join(SCENE_DATA, "full_annotations.json"),
+                             "--scans_root", os.path.join(SCENE_DATA, "scans"),
+                             "--val_split", os.path.join(SCENE_DATA, "val.txt"),
+                             "--min_views", "10"])
+    if f1 != scene_f1:
+        raise AssertionError(f"cli_dist: F1 {f1['average']} differs from the scene phase's "
+                             f"{scene_f1['average']}")
+    groups = [line for line in stdout.splitlines() if line.startswith("group of")]
+    train_dir = os.path.join(out_root, "train_detector")
+    _, train_seconds = run(["odam_torch.scripts.train_detector", "--synthetic", "--steps", "3",
+                            "--log_every", "1", "--config_path", TRAIN_CONFIG, "--out_dir",
+                            train_dir, "--device", device, "--dist_backend", "gloo",
+                            *extra_train], "train_detector")
+    ckpt = os.path.join(train_dir, "ckpt_3")
+    if (checkpoint.load_meta(ckpt) or {}).get("step") != 3:
+        raise AssertionError("cli_dist: train_detector wrote no complete ckpt_3")
+    with open(os.path.join(train_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    if [r["step"] for r in log] != [1, 2, 3] or not all(np.isfinite(r["total"]) for r in log):
+        raise AssertionError(f"cli_dist: train log {log}")
+    split = os.path.join(out_root, "split.txt")
+    with open(split, "w") as f:
+        f.write(CLI_FULL_SCENE + "\n")
+    run_dir = os.path.join(out_root, "run")
+    frames, _, run_s = _run_cli([
+        "--config_path", TRAIN_CONFIG, "--scans_root", os.path.join(SCENE_DATA, "scans"),
+        "--sequences", split, "--detector_ckpt", ckpt, "--associator_ckpt", "",
+        "--short_side", str(short_side), "--max_frames", "2", "--detect_threshold", "0.0",
+        "--attach_threshold", "0.0", "--min_views", "2", "--max_objs", "16",
+        "--max_views", "16", "--out_dir", run_dir, "--device", device])
+    with open(os.path.join(run_dir, CLI_FULL_SCENE, CLI_FULL_SCENE), "rb") as f:
+        out = pickle.load(f)
+    if len(frames) != 2 or not all(np.isfinite(x).all() for x in out["tracks"]):
+        raise AssertionError(f"cli_dist: run_processor gave {len(frames)} frames")
+    return {"phase": "cli_dist", "ranks": ranks, "backend": "gloo",
+            "note": "ranks sharing one card: not a speed-up",
+            "run_processor_seconds": sp_seconds, "groups": groups, "f1": f1["average"],
+            "f1_equals_scene": True, "train_detector_seconds": train_seconds,
+            "train_losses": [r["total"] for r in log],
+            "train_imgs_per_sec": [r["imgs_per_sec"] for r in log],
+            "checkpoint_read_frames": len(frames), "checkpoint_read_seconds": run_s,
+            "checkpoint_read_tracks": len(out["tracks"])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2190,6 +2364,11 @@ def main() -> int:
         report, counts = run()
         paths[report["phase"]] = counts
         emit(report)
+    dist_reports, dist_paths = dist_runs()
+    for report in dist_reports:
+        emit(report)
+    paths.update(dist_paths)
+    emit(cli_dist_run(scene_report["f1"]))
     for row in kernel_rows:
         if row["path"] == "lanes":      # the lane step's launches at this B
             row["launches"] = sp_full_report["launches_by_batch"][row["dtype"]][row["name"]].get(

@@ -18,13 +18,23 @@ The loop follows JAX's arithmetic where it decides the result: ``amin`` /
 out in optax's order of operations (``torch.optim.Adam`` rounds
 differently, and 200 steps amplify that).  The iterations make no host
 sync: the loss of each is kept on the device and copied once at the end.
+
+With an ``mp`` mesh (:mod:`odam_torch.parallel.mesh`) the object axis is
+sharded over the ranks, as JAX shards it (``__graft_entry__.py``'s stage
+3): it is padded to a multiple of the ranks with copies of the last object,
+frozen by ``optimize_mask``, each rank solves its block, and the result is
+gathered on every rank (the loss log summed).  Objects are independent, so
+this is the one-process solve.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_mod
+from ..parallel.distributed import all_reduce_sum
 from ..utils import geometry as geo
 from . import superquadric as sq
 
@@ -151,8 +161,10 @@ def optimize_superquadrics(
     use_prior: bool = True,
     lr_pose: float = 0.01,
     lr_shape: float = 0.1,
+    mesh: mesh_mod.Mesh | None = None,
 ) -> OptimizeResult:
-    """Optimize all objects of a scene jointly.
+    """Optimize all objects of a scene jointly (over the ``mp`` axis of
+    ``mesh``, when one is given: module docstring).
 
     Args:
         init_params: SQParams with leading axis [O].
@@ -166,6 +178,11 @@ def optimize_superquadrics(
     """
     if representation not in sq.REPRESENTATIONS:
         raise ValueError(f"unknown representation {representation!r}")
+    if mesh is not None and mesh.group is not None:
+        return _optimize_sharded(
+            mesh, init_params, boxes, box_mask, view_mask, P_cw, optimize_mask, prior_invcov,
+            n_iters=n_iters, n_samples=n_samples, representation=representation,
+            use_prior=use_prior, lr_pose=lr_pose, lr_shape=lr_shape)
     scales_init = init_params.scales.detach()
     om = optimize_mask.to(boxes.dtype)
     prior_invcov = prior_invcov if use_prior else None   # a missing table is a zero prior
@@ -186,3 +203,23 @@ def optimize_superquadrics(
         corners = torch.where(optimize_mask[:, None, None], corners, corners_det)
     return OptimizeResult(params=params, loss_log=loss_log, corners=corners,
                           corners_detector=corners_det)
+
+
+def _optimize_sharded(mesh: mesh_mod.Mesh, init_params: sq.SQParams, boxes, box_mask,
+                      view_mask, P_cw, optimize_mask, prior_invcov, **kw) -> OptimizeResult:
+    """This rank's block of the objects, padded to a multiple of the ``mp``
+    ranks with copies of the last object (frozen), then gathered."""
+    O = boxes.shape[0]
+    k = mesh.shape["mp"]
+    index = mesh_mod.pad_to_multiple(np.arange(O), k, fill=O - 1)
+    real = torch.from_numpy(np.arange(len(index)) < O).to(boxes.device)
+    take = torch.from_numpy(index).to(boxes.device)
+    inputs = [sq.SQParams(*[t[take] for t in init_params]), boxes[take], box_mask[take],
+              view_mask[take], P_cw[take], optimize_mask[take] & real,
+              None if prior_invcov is None else prior_invcov[take]]
+    local = optimize_superquadrics(*mesh_mod.shard_batch(inputs, mesh, "mp"), **kw)
+    params, corners, corners_det = mesh_mod.gather_batch(
+        (local.params, local.corners, local.corners_detector), mesh, "mp")
+    return OptimizeResult(params=sq.SQParams(*[t[:O] for t in params]),
+                          loss_log=all_reduce_sum(local.loss_log, mesh.group),
+                          corners=corners[:O], corners_detector=corners_det[:O])

@@ -7,6 +7,15 @@ mask losses, and the per-decoder-layer auxiliary losses, all normalised by
 the batch's target count.  Losses are taken in float32 whatever the
 model's compute dtype (in float64 for a float64 reference model).
 
+JAX takes the loss over the global batch, sharded or not, so its
+normalizers are global.  With a process group (``group``: each rank holds
+its rows of the global batch), the port all-reduces them before any
+division: the target count ``num_boxes``, each layer's cross-entropy weight
+sum and its image count (the cardinality error's mean).  Each rank's loss
+is then its own numerator over the global denominator, its share: the
+shares sum over the ranks to the global loss, and their gradients to the
+global gradient (:mod:`odam_torch.models.training` sums them).
+
 The matches come from :class:`odam_torch.models.matcher.HungarianMatcher`
 (one host copy for all prediction sets), or are passed in: a seeded model's
 queries can score within rounding of each other, and then a test holds two
@@ -24,6 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_reduce_sum
 from ..utils import boxes as box_ops
 from . import matcher as matcher_mod
 from .layers import at_least_f32
@@ -85,8 +95,12 @@ def _nll(logits: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 
 def layer_losses(outputs: dict, targets: Targets, tgt4query: torch.Tensor,
-                 num_boxes: torch.Tensor, cfg: CriterionConfig) -> dict[str, torch.Tensor]:
-    """All losses for one prediction set (one decoder layer)."""
+                 num_boxes: torch.Tensor, cfg: CriterionConfig, group=None
+                 ) -> dict[str, torch.Tensor]:
+    """All losses for one prediction set (one decoder layer).  With a
+    ``group``, ``num_boxes`` must be the global count, and the
+    cross-entropy's weight sum and the cardinality error's image count are
+    all-reduced here (in one collective): each loss is this rank's share."""
     out = {k: at_least_f32(v) for k, v in outputs.items() if k.startswith("pred_")}
     matched = tgt4query >= 0
     m = matched.float()
@@ -95,12 +109,18 @@ def layer_losses(outputs: dict, targets: Targets, tgt4query: torch.Tensor,
                           cfg.num_classes)
     nll = _nll(out["pred_logits"], tgt_cls)
     w = torch.where(matched, 1.0, cfg.eos_coef)
-    loss_ce = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
 
     with torch.no_grad():
         probs = torch.softmax(out["pred_logits"], dim=-1)[..., :-1]
         card_pred = (probs.amax(-1) > 0.7).float().sum(1)
-        cardinality = (card_pred - targets.mask.float().sum(1)).abs().mean()
+        card_err = (card_pred - targets.mask.float().sum(1)).abs()
+    if group is None:
+        loss_ce = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        cardinality = card_err.mean()
+    else:
+        w_sum, n_images = all_reduce_sum(torch.stack([w.sum(), w.new_full((), len(w))]), group)
+        loss_ce = (nll * w).sum() / torch.clamp(w_sum, min=1.0)
+        cardinality = card_err.sum() / n_images
 
     def matched_l1(pred, tgt_field):
         tgt = _gather_targets(tgt_field, tgt4query)
@@ -184,7 +204,7 @@ def weighted_total(losses: dict[str, torch.Tensor], cfg: CriterionConfig) -> tor
 def set_criterion(outputs: dict, targets: Targets, cfg: CriterionConfig = CriterionConfig(),
                   target_masks: torch.Tensor | None = None,
                   matches: list[torch.Tensor] | None = None,
-                  matcher: matcher_mod.HungarianMatcher | None = None
+                  matcher: matcher_mod.HungarianMatcher | None = None, group=None
                   ) -> tuple[torch.Tensor, dict]:
     """Total weighted loss over the final and aux layers -> (scalar, metrics).
 
@@ -192,14 +212,19 @@ def set_criterion(outputs: dict, targets: Targets, cfg: CriterionConfig = Criter
     then each aux layer's); without it ``matcher`` (or a new one with
     ``cfg.matcher``) computes them.  With ``target_masks`` [B, M, H, W] and
     ``pred_masks`` in ``outputs``, the focal and dice losses of the final
-    layer are added.
+    layer are added.  ``group``: the process group over which the batch
+    is sharded (module docstring); the returned values are then this rank's
+    shares.
     """
-    num_boxes = torch.clamp(targets.mask.float().sum(), min=1.0)
+    num_boxes = targets.mask.float().sum()
+    if group is not None:
+        num_boxes = all_reduce_sum(num_boxes, group)
+    num_boxes = torch.clamp(num_boxes, min=1.0)
     aux = outputs.get("aux_outputs", [])
     if matches is None:
         matcher = matcher or matcher_mod.HungarianMatcher(cfg.matcher)
         matches = matcher([outputs, *aux], targets.classes, targets.boxes, targets.mask)
-    losses = layer_losses(outputs, targets, matches[0], num_boxes, cfg)
+    losses = layer_losses(outputs, targets, matches[0], num_boxes, cfg, group)
     total = weighted_total(losses, cfg)
     metrics = dict(losses)
     if target_masks is not None and "pred_masks" in outputs:
@@ -208,7 +233,7 @@ def set_criterion(outputs: dict, targets: Targets, cfg: CriterionConfig = Criter
                  + cfg.weight_dice * mlosses["loss_dice"])
         metrics.update(mlosses)
     for i, aux_out in enumerate(aux):
-        aux_losses = layer_losses(aux_out, targets, matches[i + 1], num_boxes, cfg)
+        aux_losses = layer_losses(aux_out, targets, matches[i + 1], num_boxes, cfg, group)
         total = total + weighted_total(aux_losses, cfg)
         metrics.update({f"{k}_{i}": v for k, v in aux_losses.items()
                         if k != "cardinality_error"})

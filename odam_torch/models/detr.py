@@ -17,6 +17,8 @@ the transformer's attention to the CUDA kernels, and training turns it off.
 ``DETR.forward(..., lanes=P)`` runs P scenes' frames stacked on the batch
 axis (the scene-parallel step): the attention routes on each lane's batch,
 and ``postprocess`` takes one intrinsic matrix per image.
+``DETR.forward(..., shards=W)`` runs one rank's block of a batch sharded
+over W ranks, and the attention routes on the global batch.
 """
 from __future__ import annotations
 
@@ -131,7 +133,8 @@ class DETR(nn.Module):
         self.depth_embed = HeadMLP(D, D, 1, dtype=dt)
 
     def forward(self, images: torch.Tensor, pixel_mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None, lanes: int = 1) -> dict:
+                generator: torch.Generator | None = None, lanes: int = 1,
+                shards: int = 1) -> dict:
         """
         Args:
             images: [B, H, W, 3] normalized images (cast to the compute dtype).
@@ -139,6 +142,8 @@ class DETR(nn.Module):
             generator: draws the dropout masks in ``.train()`` mode.
             lanes: scenes stacked on the batch axis, which the attention
                 routes on (B / lanes images each).
+            shards: ranks whose blocks of B images form the global batch,
+                which the attention routes on.
 
         Returns:
             dict with pred_logits [B, Q, C+1], pred_boxes [B, Q, 4] (cxcywh,
@@ -159,7 +164,8 @@ class DETR(nn.Module):
         pos = position.sine_position_encoding(feat_mask, num_pos_feats=c.hidden_dim // 2,
                                               dtype=c.dtype)
         src = self.input_proj(feats).permute(0, 2, 3, 1)
-        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos, generator, lanes)
+        hs, _ = self.transformer(src, feat_mask, self.query_embed, pos, generator, lanes,
+                                 shards)
 
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs))

@@ -1,10 +1,22 @@
 """Training steps for the detector and the associator.
 
-Counterpart of ``odam_tpu/models/training.py`` on one device (the
-data-parallel mesh waits for the port of ``parallel/mesh.py``).  JAX trains
-on the plain attention path (its train scripts build the models without
-``use_pallas``), and the kernels have no backward, so the models trained
-here are built with ``use_kernels=False``.
+Counterpart of ``odam_tpu/models/training.py``.  JAX trains on the plain
+attention path (its train scripts build the models without ``use_pallas``),
+and the kernels have no backward, so the models trained here are built with
+``use_kernels=False``.
+
+Data parallel over a ``dp`` mesh (:mod:`odam_torch.parallel.mesh`): each
+rank holds its rows of the global batch, and the parameters are broadcast
+from rank 0 once, in :func:`init_train_state`.  JAX computes the loss over
+the global batch; here each rank's loss is its share, its numerator over
+the global normalizers (:mod:`.criterion`; the associator's pair count),
+so after ``backward`` one flattened all-reduce (SUM) of the trained leaves'
+gradients, with the metrics in the same buffer, gives every rank the global
+gradient and the global metrics.  Each group's clip then runs on the global
+gradient, as JAX clips.  (A DDP wrap would average per-rank losses: wrong
+whenever the ranks hold different numbers of boxes.)  Dropout masks are
+drawn from a generator seeded with ``step * world + rank``, so the ranks'
+masks differ; at world size 1 that is JAX's seed, the step.
 
 The optimizer is optax's, written out in optax's arithmetic order:
 
@@ -31,8 +43,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.distributed import all_reduce_sum
 from . import associator as assoc_mod
 from . import criterion as crit_mod
 from . import matcher as matcher_mod
@@ -192,31 +206,75 @@ class TrainState:
         self.step = step
 
 
-def init_train_state(model: nn.Module, opt: OptaxAdam) -> TrainState:
+def _group(mesh):
+    return None if mesh is None else mesh.group
+
+
+def init_train_state(model: nn.Module, opt: OptaxAdam, mesh=None) -> TrainState:
     """Puts the model in ``.train()`` mode (dropout on) at step 0.  Raises for
-    a model built with ``use_kernels``: the kernels have no backward."""
+    a model built with ``use_kernels``: the kernels have no backward.  With a
+    ``mesh``, rank 0's parameters and buffers are broadcast to every rank."""
     if model.config.use_kernels:
         raise ValueError("build the model with use_kernels=False to train it: the attention "
                          "kernels have no backward")
+    if _group(mesh) is not None:
+        tensors = list(model.state_dict().values())
+        for dtype in {t.dtype for t in tensors}:
+            same = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.broadcast(flat, src=0, group=mesh.group)
+            with torch.no_grad():
+                torch._foreach_copy_(same, [x.view_as(t) for x, t in
+                                            zip(flat.split([t.numel() for t in same]), same)])
     model.train()
     return TrainState(model, opt)
 
 
-def _backward_and_update(state: TrainState, loss: torch.Tensor) -> None:
-    for p in state.opt.parameters():
+def _seed(state: TrainState, mesh) -> int:
+    """The dropout seed: the step at world size 1, distinct over the ranks."""
+    if mesh is None:
+        return state.step
+    return state.step * mesh.size + mesh.rank
+
+
+def _backward_and_update(state: TrainState, loss: torch.Tensor, mesh=None,
+                         metrics: list[torch.Tensor] = ()) -> list[torch.Tensor]:
+    """backward, then (with a mesh) one all-reduce of the gradients and the
+    ``metrics``, then the update; returns the metrics, summed over the
+    ranks with a mesh."""
+    params = state.opt.parameters()
+    for p in params:
         p.grad = None
     loss.backward()
+    if _group(mesh) is not None:
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        sizes = [g.numel() for g in grads] + [1] * len(metrics)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [m.detach().reshape(1).to(grads[0].dtype) for m in metrics])
+        dist.all_reduce(flat, group=mesh.group)
+        parts = flat.split(sizes)
+        # back into each leaf's own gradient: the update then reads the same
+        # layout as without a mesh (views into ``flat`` round differently)
+        torch._foreach_copy_(grads, [g.view_as(p) for g, p in zip(parts, grads)])
+        metrics = [m.reshape(()).to(x.dtype) for m, x in zip(parts[len(params):], metrics)]
     state.opt.step()
     state.step += 1
+    return [m.detach() for m in metrics]
 
 
 def make_detr_train_step(cfg: DetrTrainConfig,
-                         matcher: matcher_mod.HungarianMatcher | None = None):
+                         matcher: matcher_mod.HungarianMatcher | None = None, mesh=None):
     """One detector step: ``step(state, images, targets, pixel_mask=None,
     matches=None) -> metrics`` (tensors on the device).  Dropout masks are
     drawn from a generator seeded with the step count, as JAX seeds with
-    ``jax.random.key(step)``; the matches come from ``matcher`` (one host
-    copy a step, counted in its ``host_syncs``) unless given."""
+    ``jax.random.key(step)`` (with a ``mesh``: ``step * world + rank``); the
+    matches come from ``matcher`` (one host copy a step, counted in its
+    ``host_syncs``) unless given.  With a ``mesh``, ``images`` and
+    ``targets`` are this rank's rows of the global batch (``matches`` too),
+    and the metrics are the global batch's."""
     matcher = matcher or matcher_mod.HungarianMatcher(cfg.criterion.matcher)
     generators: dict = {}
 
@@ -225,31 +283,37 @@ def make_detr_train_step(cfg: DetrTrainConfig,
              matches: list[torch.Tensor] | None = None) -> dict:
         dev = images.device
         gen = generators.setdefault(dev, torch.Generator(device=dev))
-        gen.manual_seed(state.step)
+        gen.manual_seed(_seed(state, mesh))
         with torch.enable_grad():
             outputs = state.model(images, pixel_mask, generator=gen)
             total, metrics = crit_mod.set_criterion(outputs, targets, cfg.criterion,
-                                                    matches=matches, matcher=matcher)
-            _backward_and_update(state, total)
-        return {k: v.detach() for k, v in metrics.items()}
+                                                    matches=matches, matcher=matcher,
+                                                    group=_group(mesh))
+            values = _backward_and_update(state, total, mesh, list(metrics.values()))
+        return dict(zip(metrics, values))
 
     step.matcher = matcher
     return step
 
 
-def make_assoc_train_step():
+def make_assoc_train_step(mesh=None):
     """One associator step: ``step(state, tracks, track_mask, detections,
     det_mask, gt_pairs, pair_valid) -> loss`` (the NLL over the valid pairs,
     divided by their count, as JAX's).  The forward stops at the log
-    assignment: no decode, no host copy."""
+    assignment: no decode, no host copy.  With a ``mesh`` the inputs are
+    this rank's rows, the pair count is the global batch's, and the loss
+    returned is the global batch's."""
+    group = _group(mesh)
 
     def step(state: TrainState, tracks, track_mask, detections, det_mask, gt_pairs,
              pair_valid) -> torch.Tensor:
         with torch.enable_grad():
             Z, _ = state.model.assignment(tracks, track_mask, detections, det_mask)
-            n = torch.clamp(pair_valid.float().sum(), min=1.0)
-            loss = assoc_mod.association_nll(Z, gt_pairs, pair_valid) / n
-            _backward_and_update(state, loss)
-        return loss.detach()
+            n = pair_valid.float().sum()
+            if group is not None:
+                n = all_reduce_sum(n, group)
+            loss = assoc_mod.association_nll(Z, gt_pairs, pair_valid) / torch.clamp(n, min=1.0)
+            (loss,) = _backward_and_update(state, loss, mesh, [loss])
+        return loss
 
     return step

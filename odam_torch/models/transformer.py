@@ -11,7 +11,8 @@ with Flax's semantics (:mod:`.layers`); the attention core gets q, k and v
 in it.  ``use_kernels`` routes the attention core to the CUDA kernels
 (JAX's ``use_pallas``); training turns it off.  ``lanes`` (the forward's
 argument) is the number of scenes stacked on the batch axis, which the
-attention core routes on (:func:`odam_torch.ops.attention.mha_core`).
+attention core routes on (:func:`odam_torch.ops.attention.mha_core`), and
+``shards`` the number of ranks whose blocks form the global batch.
 """
 from __future__ import annotations
 
@@ -36,9 +37,10 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Dense(d_model, d_model, dtype=dtype)
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
 
-    def forward(self, query, key, value, key_padding_mask=None, lanes: int = 1):
+    def forward(self, query, key, value, key_padding_mask=None, lanes: int = 1,
+                shards: int = 1):
         out = mha_core(self.q_proj(query), self.k_proj(key), self.v_proj(value),
-                       self.num_heads, key_padding_mask, self.use_kernels, lanes)
+                       self.num_heads, key_padding_mask, self.use_kernels, lanes, shards)
         return self.out_proj(out)
 
 
@@ -68,10 +70,11 @@ class EncoderLayer(_Layer):
         self.norm1 = LayerNorm(d_model, LN_EPS, dtype)
         self.norm2 = LayerNorm(d_model, LN_EPS, dtype)
 
-    def forward(self, src, pos, key_padding_mask=None, generator=None, lanes: int = 1):
+    def forward(self, src, pos, key_padding_mask=None, generator=None, lanes: int = 1,
+                shards: int = 1):
         qk = src + pos
-        src = self.norm1(src + self.drop(self.self_attn(qk, qk, src, key_padding_mask, lanes),
-                                         generator))
+        src = self.norm1(src + self.drop(self.self_attn(qk, qk, src, key_padding_mask, lanes,
+                                                        shards), generator))
         return self.norm2(src + self.drop(self.ffn(src, generator), generator))
 
 
@@ -87,11 +90,13 @@ class DecoderLayer(_Layer):
         self.norm3 = LayerNorm(d_model, LN_EPS, dtype)
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
-                generator=None, lanes: int = 1):
+                generator=None, lanes: int = 1, shards: int = 1):
         qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt, lanes=lanes), generator))
+        tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt, lanes=lanes, shards=shards),
+                                         generator))
         tgt = self.norm2(tgt + self.drop(self.multihead_attn(
-            tgt + query_pos, memory + pos, memory, memory_key_padding_mask, lanes), generator))
+            tgt + query_pos, memory + pos, memory, memory_key_padding_mask, lanes, shards),
+            generator))
         return self.norm3(tgt + self.drop(self.ffn(tgt, generator), generator))
 
 
@@ -111,14 +116,15 @@ class Transformer(nn.Module):
         self.decoder_norm = LayerNorm(d_model, LN_EPS, dtype)
 
     def forward(self, src: torch.Tensor, mask: torch.Tensor, query_embed: torch.Tensor,
-                pos: torch.Tensor, generator: torch.Generator | None = None, lanes: int = 1
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                pos: torch.Tensor, generator: torch.Generator | None = None, lanes: int = 1,
+                shards: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
         """
         Args:
             src: [B, H, W, D] projected features; mask: [B, H, W] bool
             (True = padded); query_embed: [Q, D]; pos: [B, H, W, D];
             generator: draws the dropout masks in ``.train()`` mode.
             lanes: scenes stacked on the batch axis (B / lanes images each).
+            shards: ranks whose blocks of B images form the global batch.
 
         Returns:
             (hs [L_dec, B, Q, D] intermediate decoder states, memory [B, H, W, D]).
@@ -129,13 +135,13 @@ class Transformer(nn.Module):
         mask_seq = mask.reshape(B, H * W)
         for i in range(self.num_encoder_layers):
             memory = getattr(self, f"encoder_layer{i}")(memory, pos_seq, mask_seq, generator,
-                                                        lanes)
+                                                        lanes, shards)
 
         query_pos = query_embed[None].expand(B, -1, -1).to(src.dtype)
         out = torch.zeros_like(query_pos)
         intermediates = []
         for i in range(self.num_decoder_layers):
             out = getattr(self, f"decoder_layer{i}")(out, memory, pos_seq, query_pos, mask_seq,
-                                                     generator, lanes)
+                                                     generator, lanes, shards)
             intermediates.append(self.decoder_norm(out))
         return torch.stack(intermediates, dim=0), memory.reshape(B, H, W, D)

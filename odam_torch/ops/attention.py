@@ -12,7 +12,10 @@ B = 64 tracks, take the plain path below.  A call that carries ``lanes``
 independent scenes stacked on its batch axis (the scene-parallel step)
 routes on the batch of one lane, B / lanes: JAX vmaps its step over the
 lanes, so each lane's call sees that batch, and the kernels take the whole
-stack in one launch.  On a CPU tensor the kernel
+stack in one launch.  A call on one rank's block of a batch sharded over
+``shards`` ranks (the sharded batched detector) routes on the global batch,
+B x shards, as JAX routes a sharded call (its shapes under ``jit`` are
+global).  On a CPU tensor the kernel
 wrappers run their plain versions, so the routing is the same on both.
 Without it every call takes the plain path, which autograd can
 differentiate: the kernels have no backward, so training turns them off.
@@ -36,22 +39,26 @@ KERNEL_MAX_BATCH = 2
 
 def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
              key_padding_mask: torch.Tensor | None = None,
-             use_kernels: bool = True, lanes: int = 1) -> torch.Tensor:
+             use_kernels: bool = True, lanes: int = 1, shards: int = 1) -> torch.Tensor:
     """Scaled dot-product attention over heads.
 
     Args:
         q: [B, Lq, D]; k, v: [B, Lk, D] (already projected).
         num_heads: H; D must be divisible by H.
         key_padding_mask: optional [B, Lk] bool, True = padded (masked out).
-        use_kernels: route B / lanes <= KERNEL_MAX_BATCH to the kernel wrappers.
-        lanes: scenes stacked on the batch axis; must divide B.
+        use_kernels: route B x shards / lanes <= KERNEL_MAX_BATCH to the kernel
+            wrappers.
+        lanes: scenes stacked on the batch axis; must divide B x shards.
+        shards: ranks over which the global batch is sharded, B rows each.
 
     Returns:
         [B, Lq, D] attention output (before the out projection).
     """
     B, Lq, D = q.shape
-    if lanes < 1 or B % lanes:
-        raise ValueError(f"lanes {lanes} does not divide the batch {B}")
+    if shards < 1:
+        raise ValueError(f"shards must be at least 1, got {shards}")
+    if lanes < 1 or B * shards % lanes:
+        raise ValueError(f"lanes {lanes} does not divide the batch {B * shards}")
     Lk = k.shape[1]
     H = num_heads
     dh = D // H
@@ -59,7 +66,7 @@ def mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     kh = k.reshape(B, Lk, H, dh)
     vh = v.reshape(B, Lk, H, dh)
 
-    if use_kernels and B // lanes <= KERNEL_MAX_BATCH:
+    if use_kernels and B * shards // lanes <= KERNEL_MAX_BATCH:
         if Lk >= FLASH_MIN_KEYS:
             out = cuda_attention.flash_attention(qh, kh, vh, key_padding_mask)
         else:

@@ -8,9 +8,11 @@ detections, through the online step's own :func:`processor.track_step`.
 
 At a batch above ``ops.attention.KERNEL_MAX_BATCH`` (2) the detector's
 attention takes the plain path, as in JAX; the associator's batch-1 GNN
-calls still launch the fused kernel.  The JAX package can shard the
-detector's batch over a device mesh; that waits for the mesh module
-(ROADMAP Queue 1 item 11).
+calls still launch the fused kernel.  With a ``dp`` mesh
+(:mod:`odam_torch.parallel.mesh`) each rank runs its ``batch_size / W``
+rows of every stack, routing the attention on the global batch as JAX
+does, and the stack's fixed-shape detections are gathered on every rank,
+so ``detect_frames`` returns what one process returns.
 """
 from __future__ import annotations
 
@@ -23,17 +25,21 @@ from .. import resolve_device
 from ..data.loader import to_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..models import detr as detr_mod
+from ..parallel import mesh as mesh_mod
 from . import processor as proc_mod
 
 
 class BatchedDetector:
-    """DETR forward and postprocess over fixed-size stacks of frames."""
+    """DETR forward and postprocess over fixed-size stacks of frames,
+    sharded over the ``dp`` axis of ``mesh`` when one is given."""
 
     def __init__(self, detr: detr_mod.DETR, cfg: proc_mod.PipelineConfig,
-                 batch_size: int = 8, mesh=None, device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh for the batched detector is not ported yet "
-                                      "(ROADMAP Queue 1 item 11: parallel/mesh.py)")
+                 batch_size: int = 8, mesh: mesh_mod.Mesh | None = None,
+                 device: str | torch.device | None = None):
+        if mesh is not None and batch_size % mesh.shape["dp"]:
+            raise ValueError(f"batch_size {batch_size} does not divide over the "
+                             f"{mesh.shape['dp']}-way dp axis")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.detr = detr.to(self.device).eval()
         self.cfg = cfg
@@ -56,11 +62,17 @@ class BatchedDetector:
         for start in range(0, len(frames), B):
             chunk = frames[start:start + B]
             stack = np.stack(chunk + [chunk[-1]] * (B - len(chunk)))
+            shards = 1
+            if self.mesh is not None:
+                stack = mesh_mod.shard_batch(stack, self.mesh)
+                shards = self.mesh.shape["dp"]
             with torch.no_grad():
                 images = proc_mod.device_images(stack, self.device, self._mean, self._std,
                                                 self.detr.config.dtype, size)
                 dets = proc_mod.detect_frame(self.cfg, self.detr, images, K_dev,
-                                             float(img_w), float(img_h))
+                                             float(img_w), float(img_h), shards=shards)
+            if self.mesh is not None:
+                dets = mesh_mod.gather_batch(dets, self.mesh)
             out.extend(detr_mod.Detections(*[x[i:i + 1] for x in dets])
                        for i in range(len(chunk)))
         return out

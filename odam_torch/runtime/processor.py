@@ -264,11 +264,13 @@ def _attached_ids(store: tracker.TrackStore, slots: torch.Tensor, ok: torch.Tens
 
 
 def detect_frame(cfg: PipelineConfig, detr: DETR, images: torch.Tensor, K: torch.Tensor,
-                 img_w: float, img_h: float, lanes: int = 1) -> detr_mod.Detections:
+                 img_w: float, img_h: float, lanes: int = 1, shards: int = 1
+                 ) -> detr_mod.Detections:
     """DETR forward and postprocess on normalized [B, H, W, 3] frames; K is
-    [3, 3] or one per frame, [B, 3, 3]; ``lanes`` as in ``DETR.forward``."""
+    [3, 3] or one per frame, [B, 3, 3]; ``lanes`` and ``shards`` as in
+    ``DETR.forward``."""
     with record_function("odam.detr"):
-        outputs = detr(images, lanes=lanes)
+        outputs = detr(images, lanes=lanes, shards=shards)
     with record_function("odam.postprocess"):
         return detr_mod.postprocess(outputs, img_w, img_h, cfg.detect_threshold, K,
                                     max_dets=cfg.max_dets)

@@ -1,6 +1,6 @@
 """Scene-parallel lanes: P scenes advance together through one lane-batched step.
 
-Counterpart of ``odam_tpu/runtime/scene_parallel.py`` on one device.  The
+Counterpart of ``odam_tpu/runtime/scene_parallel.py``.  The
 online step is sequential within a scene (association needs the previous
 frame's tracks) but scenes are independent, so P of them run as lanes: each
 step takes frame f of every lane's scene, and the models, the rows, the
@@ -16,9 +16,18 @@ axis is padded by repeating scene 0 with every frame masked, and each real
 lane is finalized on the host after the frames: drain, ``optim_process``,
 ``merge_process``, ``optim_process``.  JAX's departures are kept: the log is
 never drained in mid-scene, so a lane longer than ``max_log_frames`` loses
-its later frames into ``n_lost`` (the serial pipeline drains instead).  The
-JAX runner shards the lanes over a device mesh; that is ROADMAP Queue 1
-item 11.
+its later frames into ``n_lost`` (the serial pipeline drains instead).
+
+With a ``dp`` mesh of d ranks (:mod:`odam_torch.parallel.mesh`), as JAX
+shards its lane axis over a device mesh, rank r runs lanes
+``[r P/d, (r+1) P/d)`` through the same lane step at B = P/d, so each
+rank's attention routes B / lanes = 1 to the kernels, as each of JAX's
+vmapped lanes does.  A rank reads only its own lanes' frames and pads only
+to its own longest scene; no collective runs inside a step.  Each rank
+finalizes its own lanes, so the host solves run d-wide, and
+:meth:`SceneParallelRunner.run_scenes` then returns every scene's output on
+every rank, in scene order, through one object all-gather.  Ranks past the
+mesh run no lane and only join the gather.
 """
 from __future__ import annotations
 
@@ -28,23 +37,33 @@ import torch
 from .. import resolve_device
 from ..data.loader import to_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from . import processor as proc_mod
 from . import tracker
 
 
 class SceneParallelRunner:
-    """Drives ``n_lanes`` scenes at once through the lane-batched step.
-    Runs on the card unless ``device="cpu"``."""
+    """Drives ``n_lanes`` scenes at once through the lane-batched step, over
+    the ``dp`` axis of ``mesh`` when one is given (``n_lanes / d`` lanes a
+    rank).  Runs on the card unless ``device="cpu"``."""
 
     def __init__(self, detr, associator, cfg: proc_mod.PipelineConfig, n_lanes: int,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: mesh_mod.Mesh | None = None):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be at least 1, got {n_lanes}")
+        d = 1 if mesh is None else mesh.shape["dp"]
+        if int(n_lanes) % d:
+            raise ValueError(f"n_lanes {n_lanes} must divide evenly over the {d}-way mesh "
+                             "axis 'dp'")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.detr = detr.to(self.device).eval()
         self.associator = associator.to(self.device).eval()
         self.cfg = cfg
         self.n_lanes = int(n_lanes)
+        self.lanes = self.n_lanes // d            # this rank's lanes
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
@@ -61,7 +80,7 @@ class SceneParallelRunner:
         on the device) or normalized float32; ``meta`` [P, 18] float32 rows
         of (frame id, T_wc row-major, valid), copied to the device at once."""
         dev = self.device
-        P = self.n_lanes
+        P = self.lanes
         meta = to_device(np.ascontiguousarray(meta, np.float32), dev)
         with torch.no_grad():
             imgs = proc_mod.device_images(images, dev, self._mean, self._std,
@@ -81,17 +100,29 @@ class SceneParallelRunner:
 
         Returns one dict per scene, in order, as the serial chain gives it
         ({tracks, bboxes_qc, bboxes_dl, quadrics, loss_log}) after
-        optim -> merge -> optim, with the lane's ``overflow_report``.
+        optim -> merge -> optim, with the lane's ``overflow_report``; with a
+        mesh, every scene's on every rank (module docstring).
         """
-        stores, logs = self.run_frames(scenes, img_h, img_w)
-        return self.finalize(scenes, stores, logs, img_h, img_w)
+        if not 1 <= len(scenes) <= self.n_lanes:
+            raise ValueError(f"{len(scenes)} scenes for {self.n_lanes} lanes")
+        if self.mesh is None:
+            stores, logs = self.run_frames(scenes, img_h, img_w)
+            return self.finalize(scenes, stores, logs, img_h, img_w)
+        index = self.mesh.index("dp")
+        mine = [] if index is None else scenes[index * self.lanes:(index + 1) * self.lanes]
+        outs = []
+        if mine:
+            stores, logs = self.run_frames(mine, img_h, img_w)
+            outs = self.finalize(mine, stores, logs, img_h, img_w)
+        return [out for rank_outs in distributed.all_gather_objects(outs)
+                for out in rank_outs]
 
     def run_frames(self, scenes: list[dict], img_h: float, img_w: float
                    ) -> tuple[tracker.TrackStore, tracker.FrameLog]:
-        """Every frame of the group through the lane step: the lane-stacked
-        stores and logs at the scenes' end (lanes past ``len(scenes)`` are
-        padding)."""
-        cfg, dev, P = self.cfg, self.device, self.n_lanes
+        """Every frame of this rank's scenes (at most its ``lanes``) through
+        the lane step: the lane-stacked stores and logs at the scenes' end
+        (lanes past ``len(scenes)`` are padding)."""
+        cfg, dev, P = self.cfg, self.device, self.lanes
         n_real = len(scenes)
         if not 1 <= n_real <= P:
             raise ValueError(f"{n_real} scenes for {P} lanes")

@@ -19,6 +19,15 @@ same pickles; as in JAX, it takes precedence over ``--offline``, and its
 frames are resized on the host to uint8 (PIL bilinear) and normalized on
 the device, so ``--device_resize`` does nothing there.
 
+Under a launcher (``python -m torch.distributed.run --nproc_per_node W -m
+odam_torch.scripts.run_processor --scene_parallel P ...``) the lanes run
+over d = max(d | P, d <= W) ranks, P / d lanes each, as JAX's CLI picks its
+mesh (:mod:`odam_torch.runtime.scene_parallel`).  Rank 0 decides which
+scenes ``--resume`` leaves and writes the pickles; the ranks meet after
+each group.  ``--dist_backend`` is ``nccl`` (a card a rank, the default on
+the card) or ``gloo`` (the CPU's default; ranks may share a card).  More
+than one rank needs ``--scene_parallel``.
+
 It runs on the card unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16, as the JAX CLI does: the models compute in bf16 with float32
 parameters, and everything after them (postprocess, association scores,
@@ -42,7 +51,6 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
-from .. import resolve_device
 from ..data import loader, scannet, transforms
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,6 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(takes precedence over --offline; frames resized on the host)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                    help="under a launcher: the process group's backend (default nccl on "
+                         "the card, gloo on the CPU)")
     return ap
 
 
@@ -262,13 +273,16 @@ def scene_inputs(index, seq_id: str, args) -> dict:
 def run_scene_parallel(args, index, scene_list: list[str], runner) -> None:
     """``--scene_parallel P``: the scenes in groups of P through ``runner``
     (a :class:`odam_torch.runtime.scene_parallel.SceneParallelRunner`), each
-    group's pickles written as the serial loop writes them."""
+    group's pickles written as the serial loop writes them, by rank 0."""
+    from ..parallel import distributed
+
     pending = []
     for seq_id in scene_list:
         if args.resume and os.path.exists(os.path.join(args.out_dir, seq_id, seq_id)):
             print(f"skipping (resume): {seq_id}")
         else:
             pending.append(seq_id)
+    pending = distributed.broadcast_object(pending)     # rank 0's view of the files
     P = runner.n_lanes
     for start in range(0, len(pending), P):
         group = [scene_inputs(index, seq_id, args) for seq_id in pending[start:start + P]]
@@ -281,11 +295,13 @@ def run_scene_parallel(args, index, scene_list: list[str], runner) -> None:
               f"({n_frames / max(seconds, 1e-6):.1f} fps aggregate)")
         for s, out in zip(group, outs):
             seq_id = s["seq_id"]
-            os.makedirs(os.path.join(args.out_dir, seq_id), exist_ok=True)
-            with open(os.path.join(args.out_dir, seq_id, seq_id), "wb") as f:
-                pickle.dump({k: out[k] for k in ("tracks", "bboxes_qc", "bboxes_dl", "quadrics")},
-                            f)
+            if distributed.is_main_process():
+                os.makedirs(os.path.join(args.out_dir, seq_id), exist_ok=True)
+                with open(os.path.join(args.out_dir, seq_id, seq_id), "wb") as f:
+                    pickle.dump({k: out[k] for k in ("tracks", "bboxes_qc", "bboxes_dl",
+                                                     "quadrics")}, f)
             print(f"  {seq_id}: {len(out['tracks'])} tracks")
+        distributed.barrier()
 
 
 def pipeline_config(args):
@@ -315,7 +331,14 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     fast = args.profile == "fast"
     decode = args.decode if args.decode != "profile" else ("greedy" if fast else "exact")
-    device = resolve_device(args.device)
+    from ..parallel import distributed, mesh as mesh_mod
+
+    device = distributed.init_distributed(backend=args.dist_backend, device=args.device)
+    world = distributed.process_count()
+    if world > 1:
+        if not args.scene_parallel:
+            raise SystemExit(f"run_processor on {world} ranks needs --scene_parallel P")
+        distributed.main_process_only_print()
     if device.type == "cuda":
         # float32 means float32 in both dtypes (the stages after the models
         # are float32): cuDNN runs convolutions in TF32 by default
@@ -345,8 +368,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.scene_parallel:
         from ..runtime import scene_parallel
 
-        runner = scene_parallel.SceneParallelRunner(detr, assoc, pcfg, args.scene_parallel,
-                                                    device=device)
+        P, mesh = args.scene_parallel, None
+        if world > 1:
+            d = max(d for d in range(1, min(P, world) + 1) if P % d == 0)
+            mesh = mesh_mod.make_mesh({"dp": d}, device=device)
+            print(f"scene lanes over {d} of {world} ranks, {P // d} a rank")
+        runner = scene_parallel.SceneParallelRunner(detr, assoc, pcfg, P, device=device,
+                                                    mesh=mesh)
         run_scene_parallel(args, index, scene_list, runner)
         return 0
 

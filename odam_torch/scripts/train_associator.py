@@ -10,7 +10,9 @@ on the plain attention path (``use_kernels=False``), with no decode and no
 host copy in the step.  ``--synthetic`` (or no ``--tracks_dir``) trains on
 generated track histories.  Checkpoints and ``--resume_ckpt`` work as in
 ``train_detector``; ``run_processor --associator_ckpt`` reads them.
-``--tracks_dir`` pickles are unpickled: load only trusted files.
+``--tracks_dir`` pickles are unpickled: load only trusted files.  Under a
+launcher it trains data parallel over the ranks as ``train_detector`` does:
+``--batch_size`` is the global batch, and each rank keeps its rows of it.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
-from .. import resolve_device
 
 BATCH_KEYS = ("tracks", "track_mask", "detections", "det_mask", "gt_pairs", "pair_valid")
 
@@ -64,12 +65,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume_ckpt", default=None,
                     help="a ckpt_<step> directory of an earlier run: continue at its step")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                    help="under a launcher: the process group's backend (default nccl on "
+                         "the card, gloo on the CPU)")
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    from ..parallel import distributed, mesh as mesh_mod
+
+    device = distributed.init_distributed(backend=args.dist_backend, device=args.device)
+    mesh = mesh_mod.make_mesh(device=device) if distributed.process_count() > 1 else None
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -102,27 +109,36 @@ def main(argv: list[str] | None = None) -> int:
     opt = train_mod.make_assoc_optimizer(model, train_mod.AssocTrainConfig())
     if opt_state is not None:
         opt.load_state_arrays(opt_state)
-    state = train_mod.init_train_state(model, opt)
+    state = train_mod.init_train_state(model, opt, mesh)
     state.step = int(meta.get("step", 0))
-    step_fn = train_mod.make_assoc_train_step()
+    step_fn = train_mod.make_assoc_train_step(mesh)
 
     os.makedirs(args.out_dir, exist_ok=True)
-    logger = metrics.MetricLogger(os.path.join(args.out_dir, "train_log.jsonl"))
+    logger = None
+    if distributed.is_main_process():
+        logger = metrics.MetricLogger(os.path.join(args.out_dir, "train_log.jsonl"))
     batches = ds.batches(args.batch_size, rng)
     for _ in range(state.step):           # a resumed run continues the batch stream
         next(batches)
     t0 = time.time()
     for step in range(state.step, args.steps):
-        b = next(batches)
-        loss = step_fn(state, *[torch.from_numpy(b[k]).to(device) for k in BATCH_KEYS])
+        batch = next(batches)
+        b = [batch[k] for k in BATCH_KEYS]
+        if mesh is not None:
+            b = mesh_mod.shard_batch(b, mesh)
+        loss = step_fn(state, *[torch.from_numpy(x).to(device) for x in b])   # global
         if (step + 1) % args.log_every == 0:
-            rate = args.log_every * args.batch_size / (time.time() - t0)
+            seconds = distributed.reduce_scalars({"seconds": time.time() - t0})["seconds"]
+            rate = args.log_every * args.batch_size / seconds
             t0 = time.time()
-            logger.log(step=step + 1, loss=float(loss), samples_per_sec=round(rate, 2))
+            if logger is not None:
+                logger.log(step=step + 1, loss=float(loss), samples_per_sec=round(rate, 2))
         if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
-            checkpoint.save(os.path.join(args.out_dir, f"ckpt_{step + 1}"),
-                            convert.state_dict_to_flax(model), opt.state_arrays(),
-                            {"step": step + 1, "config_path": args.config_path})
+            distributed.save_on_main(
+                checkpoint.save, os.path.join(args.out_dir, f"ckpt_{step + 1}"),
+                convert.state_dict_to_flax(model), opt.state_arrays(),
+                {"step": step + 1, "config_path": args.config_path})
+    distributed.barrier()
     print("done")
     return 0
 

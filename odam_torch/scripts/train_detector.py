@@ -14,6 +14,15 @@ writes ``<out_dir>/ckpt_<step>/`` (:mod:`odam_torch.utils.checkpoint`):
 ``run_processor --detector_ckpt`` reads that directory, and
 ``--resume_ckpt`` continues from it at its step, with its optimizer state,
 up to ``--steps`` in all.  The log goes to ``<out_dir>/train_log.jsonl``.
+
+Under a launcher (``python -m torch.distributed.run --nproc_per_node W -m
+odam_torch.scripts.train_detector ...``) it trains data parallel over the W
+ranks (:mod:`odam_torch.models.training`): ``--batch_size`` stays the global
+batch, as in JAX; every rank draws the same global batch from the same
+seeded stream and keeps its rows, so W ranks train on what one process
+trains on.  ``--dist_backend`` is ``nccl`` (a card a rank, the default on
+the card) or ``gloo`` (the CPU's default; ranks may share a card).  Rank 0
+writes the log and the checkpoints; ``--resume_ckpt`` is read on every rank.
 """
 from __future__ import annotations
 
@@ -26,7 +35,6 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
-from .. import resolve_device
 
 
 def synthetic_batches(batch_size, h, w, num_classes, max_objects, rng):
@@ -64,12 +72,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume_ckpt", default=None,
                     help="a ckpt_<step> directory of an earlier run: continue at its step")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                    help="under a launcher: the process group's backend (default nccl on "
+                         "the card, gloo on the CPU)")
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    from ..parallel import distributed, mesh as mesh_mod
+
+    device = distributed.init_distributed(backend=args.dist_backend, device=args.device)
+    mesh = mesh_mod.make_mesh(device=device) if distributed.process_count() > 1 else None
     if device.type == "cuda":
         # float32 means float32: cuDNN runs convolutions in TF32 by default
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,9 +109,9 @@ def main(argv: list[str] | None = None) -> int:
     opt = train_mod.make_detr_optimizer(model, tcfg)
     if opt_state is not None:
         opt.load_state_arrays(opt_state)
-    state = train_mod.init_train_state(model, opt)
+    state = train_mod.init_train_state(model, opt, mesh)
     state.step = int(meta.get("step", 0))
-    step_fn = train_mod.make_detr_train_step(tcfg)
+    step_fn = train_mod.make_detr_train_step(tcfg, mesh=mesh)
 
     rng = np.random.default_rng(0)
     if args.synthetic or not args.annotations:
@@ -110,23 +124,30 @@ def main(argv: list[str] | None = None) -> int:
         next(batches)
 
     os.makedirs(args.out_dir, exist_ok=True)
-    logger = metrics.MetricLogger(os.path.join(args.out_dir, "train_log.jsonl"))
+    logger = None
+    if distributed.is_main_process():
+        logger = metrics.MetricLogger(os.path.join(args.out_dir, "train_log.jsonl"))
     t0 = time.time()
     for step in range(state.step, args.steps):
         images, targets = next(batches)
+        if mesh is not None:
+            images, targets = mesh_mod.shard_batch((images, targets), mesh)
         images = torch.from_numpy(images).to(device)
         targets = crit_mod.Targets(*[torch.from_numpy(x).to(device) for x in targets])
-        m = step_fn(state, images, targets)
+        m = step_fn(state, images, targets)           # the global batch's metrics
         if (step + 1) % args.log_every == 0:
             m = {k: float(v) for k, v in m.items() if not k[-1].isdigit()}
-            rate = args.log_every * args.batch_size / (time.time() - t0)
+            seconds = distributed.reduce_scalars({"seconds": time.time() - t0})["seconds"]
+            rate = args.log_every * args.batch_size / seconds
             t0 = time.time()
-            logger.log(step=step + 1, imgs_per_sec=round(rate, 2), **m)
+            if logger is not None:
+                logger.log(step=step + 1, imgs_per_sec=round(rate, 2), **m)
         if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
-            checkpoint.save(os.path.join(args.out_dir, f"ckpt_{step + 1}"),
-                            convert.state_dict_to_flax(model), opt.state_arrays(),
-                            {"step": step + 1, "config_path": args.config_path,
-                             "dtype": args.dtype})
+            distributed.save_on_main(
+                checkpoint.save, os.path.join(args.out_dir, f"ckpt_{step + 1}"),
+                convert.state_dict_to_flax(model), opt.state_arrays(),
+                {"step": step + 1, "config_path": args.config_path, "dtype": args.dtype})
+    distributed.barrier()
     print("done")
     return 0
 

@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax_or_odam_tpu():
     required = {"odam_torch.models." + m for m in ("matcher", "criterion", "training")}
     required |= {"odam_torch.data.datasets", "odam_torch.utils.checkpoint",
                  "odam_torch.utils.metrics", "odam_torch.scripts.train_detector",
-                 "odam_torch.scripts.train_associator", "odam_torch.runtime.scene_parallel"}
+                 "odam_torch.scripts.train_associator", "odam_torch.runtime.scene_parallel",
+                 "odam_torch.parallel.mesh", "odam_torch.parallel.distributed",
+                 "odam_torch.scripts.dryrun_distributed"}
     assert required <= set(mods), required - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from odam_torch.parallel import mesh as t_mesh
 from odam_torch.runtime import offline as t_off
 from odam_torch.runtime import processor as t_proc
 from odam_torch.runtime import tracker as t_trk
@@ -107,7 +108,9 @@ def test_batched_detector_pads_partial_batches():
     """Six frames in batches of 4 (the last padded by repeating its frame),
     as tests/test_offline.py has it: six batch-1 Detections, each equal to
     JAX's (valid and classes exact, floats within 1e-4) and to the port's
-    own frame-by-frame detections; a mesh raises with its ROADMAP item."""
+    own frame-by-frame detections.  A one-rank mesh gives the same
+    detections; a batch that does not divide over the mesh's dp axis
+    raises."""
     jpipe, tpipe, jd, td, _, _ = _offline_parts()
     frames = _frames(6, seed=5)
     jout = jd.detect_frames(frames, K, 64.0, 64.0)
@@ -128,8 +131,15 @@ def test_batched_detector_pads_partial_batches():
                 torch.from_numpy(K), 64.0, 64.0)
         np.testing.assert_array_equal(one.valid.numpy(), t.valid.numpy())
         np.testing.assert_allclose(one.boxes.numpy()[v], t.boxes.numpy()[v], atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        t_off.BatchedDetector(tpipe.detr, tpipe.cfg, mesh=object(), device="cpu")
+    mesh = t_mesh.make_mesh(device="cpu")
+    meshed = t_off.BatchedDetector(tpipe.detr, tpipe.cfg, batch_size=4, mesh=mesh,
+                                   device="cpu").detect_frames(frames, K, 64.0, 64.0)
+    for t, m in zip(tout, meshed):
+        for name, x, y in zip(t._fields, t, m):
+            assert torch.equal(x, y), name
+    three = t_mesh.Mesh(("dp",), (3,), 0, torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not divide"):
+        t_off.BatchedDetector(tpipe.detr, tpipe.cfg, batch_size=4, mesh=three, device="cpu")
 
 
 def test_offline_tracks_equal_online_and_jax():
