@@ -81,7 +81,21 @@ Phases, each printed as one JSON line on stdout:
     lanes' aggregate frames/s at P = 8 (1 x 8 here, 2 x 4 over the ranks);
 18. cli_dist: ``run_processor --scene_parallel 4`` and ``train_detector``
     on 2 gloo ranks under ``python -m torch.distributed.run``: the scene
-    phase's F1 table, and the checkpoint read by ``run_processor``.
+    phase's F1 table, and the checkpoint read by ``run_processor``;
+19. tracking: ``python -m odam_torch.scripts.run_tracking`` (detector and
+    heuristic tracker) at full width with seeded weights in bf16 on the
+    hard split at 800x800: per scene frames/s, the median frame, host
+    copies a frame, launches by kernel and dtype (flash 12, fused 6 a
+    frame); tracking_rehearsal: ``run_tracking.track_scene`` with the
+    committed rehearsal detector in f32 on 8 frames at 800x800 (2500 image
+    tokens), card against CPU within the DETR bar;
+20. eval_association: the CLI with the full-width associator (seeded
+    weights, .npz) on 2 synthetic scenes x 6 tracks x 40 frames (ms a
+    frame, fused 16 launches a frame), then with the committed rehearsal
+    associator, P / R / F1 card = CPU;
+21. mapping_tools: ``run_multi_view`` (200 iterations) and ``run_merge`` on
+    tracking_rehearsal's tracks; 5 iterations card against CPU (bboxes_dl
+    within 1e-3, bboxes_qc IoU >= 0.95, merged tracks equal).
 
 Then the kernel table with the launch counts of every path, the card's name and power limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
@@ -308,6 +322,18 @@ KERNEL_CASES = [
           label="scene: GNN track<-detection cross"),
     _case("fused_attention", 1, 30, 64, 4, 16, torch.float32, masked_tail=59,
           label="scene: GNN detection<-track cross"),
+    # tracking_rehearsal: the committed rehearsal detector on its 192x192
+    # frames resized to 800x800 by target_size (2500 image tokens, dh 16)
+    _case("flash_attention", 1, 2500, 2500, 4, 16, torch.float32,
+          label="tracking_rehearsal: encoder self"),
+    _case("flash_attention", 1, 16, 2500, 4, 16, torch.float32,
+          label="tracking_rehearsal: decoder cross"),
+    _case("flash_attention", 1, 2500, 2500, 4, 16, torch.bfloat16,
+          label="tracking_rehearsal: encoder self"),
+    _case("flash_attention", 1, 16, 2500, 4, 16, torch.bfloat16,
+          label="tracking_rehearsal: decoder cross"),
+    _case("fused_attention", 1, 16, 16, 4, 16, torch.bfloat16, mask=False,
+          label="tracking_rehearsal: decoder self"),
     # the full-width CLI run: 192x192 frames resized to 800x800 (625 tokens)
     _case("flash_attention", 1, 625, 625, 8, 32, torch.float32, label="cli_full: encoder self"),
     _case("flash_attention", 1, 100, 625, 8, 32, torch.float32,
@@ -1517,13 +1543,32 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
              "launches": counts, "launches_by_batch": by_batch}, counts)
 
 
+def _counts_of(dev: torch.device) -> tuple[dict, dict]:
+    """The attention counters of ``dev``: launches on the card, plain calls
+    on the CPU, each with its split by dtype."""
+    from odam_torch.ops import cuda_attention as ca
+
+    if dev.type == "cuda":
+        return ca.LAUNCHES, ca.LAUNCHES_BY_DTYPE
+    return ca.PLAIN_CALLS, ca.PLAIN_CALLS_BY_DTYPE
+
+
+def _counted(dev: torch.device, fn, *args):
+    """``fn(*args)`` and the attention calls it made on ``dev``: (result,
+    calls by kernel, calls by kernel and dtype)."""
+    counts, by_dtype = _counts_of(dev)
+    before, before_dt = dict(counts), {k: dict(v) for k, v in by_dtype.items()}
+    result = fn(*args)
+    return (result, {k: counts[k] - before[k] for k in counts},
+            {k: {d: by_dtype[k][d] - before_dt[k][d] for d in v} for k, v in by_dtype.items()})
+
+
 def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
     """``odam_torch.scripts.run_processor.main`` with every frame's kernel
     launches (or, on the CPU, plain calls), by dtype too, and every scene's
     wall time (frames, solve, merge, solve) recorded.  A frame is a call of
     ``process_frame`` or, offline, of ``process_detections``; the offline
     detector's batches are recorded as entries with ``"detect": True``."""
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.runtime import offline, processor
     from odam_torch.scripts import run_processor
 
@@ -1533,14 +1578,9 @@ def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
              "detect": offline.BatchedDetector.detect_frames,
              "scene": run_processor.run_scene}
 
-    def counts_of(device):
-        if device.type == "cuda":
-            return ca.LAUNCHES, ca.LAUNCHES_BY_DTYPE
-        return ca.PLAIN_CALLS, ca.PLAIN_CALLS_BY_DTYPE
-
     def recorded(kind):
         def call(obj, *args):
-            counts, by_dtype = counts_of(obj.device)
+            counts, by_dtype = _counts_of(obj.device)
             before = dict(counts)
             before_dt = {k: dict(v) for k, v in by_dtype.items()}
             result = inner[kind](obj, *args)
@@ -2292,6 +2332,277 @@ def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"
             "checkpoint_read_tracks": len(out["tracks"])}
 
 
+# ------------------------------------------------- tracking and evaluation
+
+TRACK_CONFIG = os.path.join("configs", "detr_scan_net.yaml")
+TRACK_REHEARSAL_FRAMES = 8         # tracking_rehearsal: frames of CLI_FULL_SCENE
+ASSOC_SEED = 4                     # the synthetic ground-truth tracks of eval_association
+ASSOC_SCENES = {"n_scenes": 2, "n_tracks": 6, "n_frames": 40}
+MAP_TOOLS_CHECK_ITERS = 5          # card vs CPU: the Adam solve is chaotic over 200
+MAP_TOOLS_MIN_VIEWS = "2"          # 8 frames of tracks: solve every track seen twice
+
+
+def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device: str = "cuda",
+                 max_frames: int | None = None) -> tuple[dict, dict]:
+    """``python -m odam_torch.scripts.run_tracking`` at full width: the
+    seeded ResNet-50 DETR of configs/detr_scan_net.yaml (hidden 256, 6+6
+    layers, 100 queries) in bf16, the CLI's default, on the committed hard
+    split (3 scenes x 32 frames resized to 800x800: 625 image tokens), then
+    the heuristic tracker on the host.  Thresholds 0, so that the seeded
+    detector's detections reach the tracker.  Per scene: frames/s, the
+    median frame (read and resize, detection to one host copy, tracker
+    step) and each stage's mean, host copies a frame, and the launches by
+    kernel and dtype: flash 12 (6 encoder self, 6 decoder cross) and fused
+    6 (decoder self) a frame, all bf16."""
+    import pickle
+
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import run_tracking
+
+    dev = torch.device(device)
+    scenes = []
+    inner = run_tracking.track_scene
+
+    def recorded(detr, index, seq_id, args):
+        t0 = time.perf_counter()
+        (tracks, stats), calls, by_dtype = _counted(dev, inner, detr, index, seq_id, args)
+        seconds = time.perf_counter() - t0
+        n = len(stats["frame_ms"])
+        scenes.append({"scene": seq_id, "frames": n, "seconds": seconds,
+                       "frames_per_s": n / seconds,
+                       "median_frame_ms": float(np.median(stats["frame_ms"])),
+                       "stage_mean_ms": {k: v["mean_ms"] for k, v in stats["stages"].items()},
+                       "host_syncs_per_frame": stats["host_copies"] / n, "tracks": len(tracks),
+                       "launches": calls, "launches_by_dtype": by_dtype})
+        return tracks, stats
+
+    argv = ["--config_path", TRACK_CONFIG, "--scans_root", os.path.join(SCENE_DATA, "scans"),
+            "--sequences", os.path.join(SCENE_DATA, "val.txt"), "--detector_ckpt", "",
+            "--detect_threshold", "0.0", "--track_threshold", "0.0", "--out_dir", out_root,
+            "--device", device] + (["--max_frames", str(max_frames)] if max_frames else [])
+    counts, _ = _counts_of(dev)
+    ca.reset_counts()
+    run_tracking.track_scene = recorded
+    try:
+        t0 = time.perf_counter()
+        if run_tracking.main(argv) != 0:
+            raise AssertionError("run_tracking failed")
+        seconds = time.perf_counter() - t0
+    finally:
+        run_tracking.track_scene = inner
+    launched = dict(counts)
+    for s in scenes:
+        want = {"flash_attention": 12 * s["frames"], "fused_attention": 6 * s["frames"]}
+        if s["launches"] != want:
+            raise AssertionError(f"tracking {s['scene']}: launches {s['launches']}, expected {want}")
+        _check_dtype(f"tracking {s['scene']}", s["launches_by_dtype"], "bfloat16")
+        if s["host_syncs_per_frame"] != 1.0:
+            raise AssertionError(f"tracking {s['scene']}: {s['host_syncs_per_frame']} host "
+                                 "copies a frame")
+        with open(os.path.join(out_root, s["scene"], s["scene"]), "rb") as f:
+            tracks = pickle.load(f)["tracks"]
+        if not tracks or not all(t.shape[1] == 14 and np.isfinite(t).all() for t in tracks):
+            raise AssertionError(f"tracking {s['scene']}: {len(tracks)} tracks, or bad rows")
+    if len(scenes) != 3:
+        raise AssertionError(f"tracking: {len(scenes)} scenes")
+    return ({"phase": "tracking", "config": TRACK_CONFIG, "dtype": "bfloat16",
+             "weights": "seeded", "size": "800x800", "seconds": seconds, "scenes": scenes,
+             "launches": launched}, launched)
+
+
+def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking_rehearsal"),
+                           devices: tuple[str, str] = ("cuda", "cpu"),
+                           n_frames: int = TRACK_REHEARSAL_FRAMES) -> tuple[dict, dict, str]:
+    """``run_tracking.track_scene`` with the committed rehearsal detector
+    (TinyBackbone stage 3, hidden 64, 4 heads, 16 queries) in f32 on the
+    first ``n_frames`` frames of CLI_FULL_SCENE at 800x800 (2500 image
+    tokens: flash 4 and fused 2 a frame), on the card and on the CPU: the
+    same tracks, frame and class exact, the rest within the DETR card-vs-CPU
+    bar (atol = rtol = 1e-3).  Writes the card's tracks as run_tracking
+    does, for mapping_tools.  Returns (report, the card's launches, the
+    tracks pickle)."""
+    import pickle
+
+    from odam_torch import config as config_mod
+    from odam_torch.data import scannet
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import run_processor, run_tracking
+
+    args = run_tracking.build_parser().parse_args(
+        ["--scans_root", os.path.join(SCENE_DATA, "scans"), "--max_frames", str(n_frames)])
+    cfg = config_mod.merge_cfg([os.path.join(SCENE_DATA, "rehearsal.yaml")])
+    index = scannet.SceneIndex(args.scans_root, [CLI_FULL_SCENE])
+    runs = {}
+    ca.reset_counts()
+    for side, device in zip(("card", "cpu"), devices):
+        dev = torch.device(device)
+        det, _ = run_processor.build_models(
+            cfg, os.path.join("artifacts", "torch", "rehearsal_hard_detr.npz"), None, "exact",
+            dev, torch.float32)
+        t0 = time.perf_counter()
+        (tracks, stats), calls, by_dtype = _counted(dev, run_tracking.track_scene, det, index,
+                                                    CLI_FULL_SCENE, args)
+        runs[side] = {"tracks": tracks, "stats": stats, "calls": calls, "by_dtype": by_dtype,
+                      "seconds": time.perf_counter() - t0}
+        del det
+    card, cpu = runs["card"], runs["cpu"]
+    frames = len(card["stats"]["frame_ms"])
+    want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames}
+    for side, run in runs.items():
+        if run["calls"] != want:
+            raise AssertionError(f"tracking_rehearsal {side}: attention calls {run['calls']}, "
+                                 f"expected {want}")
+        _check_dtype(f"tracking_rehearsal {side}", run["by_dtype"], "float32")
+    if len(card["tracks"]) != len(cpu["tracks"]) or not card["tracks"]:
+        raise AssertionError(f"tracking_rehearsal: {len(card['tracks'])} tracks on the card, "
+                             f"{len(cpu['tracks'])} on the CPU")
+    box_px, other = 0.0, 0.0
+    for a, b in zip(card["tracks"], cpu["tracks"]):
+        if a.shape != b.shape or not np.array_equal(a[:, :2], b[:, :2]):
+            raise AssertionError("tracking_rehearsal: track frame ids or classes differ")
+        if not np.allclose(a, b, atol=DETR_ATOL, rtol=DETR_RTOL):
+            raise AssertionError(f"tracking_rehearsal: rows card vs CPU beyond atol = rtol = "
+                                 f"{DETR_ATOL}: {np.abs(a - b).max(axis=0)}")
+        box_px = max(box_px, float(np.abs(a[:, 2:6] - b[:, 2:6]).max()))
+        other = max(other, float(np.abs(a[:, 6:] - b[:, 6:]).max()))
+    path = os.path.join(out_root, CLI_FULL_SCENE, CLI_FULL_SCENE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"tracks": card["tracks"]}, f)
+    report = {"phase": "tracking_rehearsal", "scene": CLI_FULL_SCENE, "frames": frames,
+              "size": "x".join(map(str, card["stats"]["size"])), "tracks": len(card["tracks"]),
+              "max_box_abs_diff_px": box_px, "max_other_abs_diff": other,
+              "median_frame_ms": {d: float(np.median(r["stats"]["frame_ms"]))
+                                  for d, r in runs.items()},
+              "stage_mean_ms": {d: {k: v["mean_ms"] for k, v in r["stats"]["stages"].items()}
+                                for d, r in runs.items()},
+              "seconds": {d: r["seconds"] for d, r in runs.items()},
+              "launches": card["calls"], "cpu_plain_calls": cpu["calls"]}
+    return report, card["calls"], path
+
+
+def eval_association_run(out_root: str = os.path.join("chiprun_out", "eval_association"),
+                         devices: tuple[str, str] = ("cuda", "cpu")) -> tuple[dict, dict]:
+    """``python -m odam_torch.scripts.eval_association`` on 2 synthetic
+    scenes x 6 ground-truth tracks x 40 frames (train_associator's
+    generator, seeded): first the full-width associator (configs/
+    detr_scan_net.yaml: 256-d, 4 heads, 2 fuser and 8 GNN layers, 100
+    Sinkhorn iterations) with seeded weights saved as .npz, on the card:
+    ms a frame and the launches, fused 16 a frame (8 GNN layers x 2
+    directions at batch 1; the fuser at batch 64 is plain); then the
+    committed rehearsal associator on the card and on the CPU: per-frame
+    counts and P / R / F1 equal."""
+    import pickle
+
+    from odam_torch import config as config_mod
+    from odam_torch.eval import association
+    from odam_torch.models import associator, convert
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import eval_association
+    from odam_torch.scripts.train_associator import synthetic_scenes
+
+    tracks_dir = os.path.join(out_root, "tracks")
+    os.makedirs(tracks_dir, exist_ok=True)
+    for name, tracks in synthetic_scenes(np.random.default_rng(ASSOC_SEED),
+                                         **ASSOC_SCENES).items():
+        with open(os.path.join(tracks_dir, name), "wb") as f:
+            pickle.dump({"tracks": tracks}, f)
+    seeded = os.path.join(out_root, "seeded_assoc.npz")
+    model = associator.build_associator(
+        associator.AssociatorConfig.from_cfg(config_mod.merge_cfg([TRACK_CONFIG])), seed=0,
+        device="cpu")
+    convert.save_flax_npz(seeded, convert.state_dict_to_flax(model))
+    del model
+
+    card, cpu = (torch.device(d) for d in devices)
+    scene_s = []
+    inner = association.evaluate_scene
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        m = inner(*a, **k)
+        scene_s.append(time.perf_counter() - t0)        # ends in host copies: synchronised
+        return m
+
+    association.evaluate_scene = timed
+    try:
+        ca.reset_counts()
+        full, calls, by_dtype = _counted(card, eval_association.main, [
+            "--config_path", TRACK_CONFIG, "--tracks_dir", tracks_dir, "--ckpt", seeded,
+            "--device", devices[0]])
+    finally:
+        association.evaluate_scene = inner
+    frames = full["TOTAL"].n_frames
+    if calls != {"flash_attention": 0, "fused_attention": 16 * frames}:
+        raise AssertionError(f"eval_association: launches {calls} over {frames} frames")
+    _check_dtype("eval_association", by_dtype, "float32")
+    rehearsal = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
+                 "--tracks_dir", tracks_dir,
+                 "--ckpt", os.path.join("artifacts", "torch", "rehearsal_hard_assoc.npz")]
+    got, rehearsal_calls, _ = _counted(card, eval_association.main,
+                                       rehearsal + ["--device", devices[0]])
+    want = eval_association.main(rehearsal + ["--device", devices[1]])
+    for name, w in want.items():
+        g = got[name]
+        if g.per_frame != w.per_frame or (g.precision, g.recall, g.f1) != (
+                w.precision, w.recall, w.f1):
+            raise AssertionError(f"eval_association {name}: card P/R/F1 "
+                                 f"{(g.precision, g.recall, g.f1)} differ from the CPU's "
+                                 f"{(w.precision, w.recall, w.f1)}")
+    if rehearsal_calls["fused_attention"] == 0:
+        raise AssertionError("eval_association: the rehearsal associator launched no kernel")
+    return ({"phase": "eval_association", "scenes": ASSOC_SCENES, "frames": frames,
+             "full_width_ms_per_frame": 1e3 * sum(scene_s) / frames,
+             "full_width_f1": full["TOTAL"].f1, "launches": calls,
+             "rehearsal": {n: {"p": m.precision, "r": m.recall, "f1": m.f1,
+                               "frames": m.n_frames} for n, m in got.items()},
+             "rehearsal_card_equals_cpu": True, "rehearsal_launches": rehearsal_calls},
+            calls)
+
+
+def mapping_tools_run(tracks_pickle: str,
+                      out_root: str = os.path.join("chiprun_out", "mapping_tools"),
+                      devices: tuple[str, str] = ("cuda", "cpu"), n_iters: int = 200) -> dict:
+    """``run_multi_view`` (``n_iters`` Adam iterations) then ``run_merge`` on the
+    tracks of tracking_rehearsal, on the card: the solve's seconds, the
+    object and merged counts.  Then ``--n_iters 5`` on the card and on the
+    CPU: ``bboxes_dl`` within 1e-3 and ``bboxes_qc`` at oriented IoU >= 0.95
+    (SCENE_QC_IOU), and the merged tracks equal."""
+    from odam_torch.scripts import run_merge, run_multi_view
+    from odam_torch.utils.host_boxes import robust_box3d_iou
+
+    os.makedirs(out_root, exist_ok=True)
+    common = ["--tracks", tracks_pickle, "--scans_root", os.path.join(SCENE_DATA, "scans"),
+              "--scene", CLI_FULL_SCENE, "--min_views", MAP_TOOLS_MIN_VIEWS]
+
+    def solve(device, tag, extra=()):
+        out = os.path.join(out_root, f"{tag}.pkl")
+        res = run_multi_view.main(common + ["--out", out, "--device", device, *extra])
+        return res, run_merge.main(["--input", out, "--out", os.path.join(out_root,
+                                                                          f"{tag}_merged.pkl")])
+
+    full, merged = solve(devices[0], f"card{n_iters}", ("--n_iters", str(n_iters)))
+    if not all(np.isfinite(b).all() for b in (*full["bboxes_qc"], *full["bboxes_dl"])):
+        raise AssertionError("mapping_tools: non-finite boxes")
+    check = ("--n_iters", str(MAP_TOOLS_CHECK_ITERS))
+    (card, card_merged), (cpu, cpu_merged) = (solve(d, f"{side}{MAP_TOOLS_CHECK_ITERS}", check)
+                                              for side, d in zip(("card", "cpu"), devices))
+    dl = max(float(np.abs(a - b).max()) for a, b in zip(card["bboxes_dl"], cpu["bboxes_dl"]))
+    ious = [robust_box3d_iou(a, b) for a, b in zip(card["bboxes_qc"], cpu["bboxes_qc"])]
+    if not dl <= 1e-3 or min(ious) < SCENE_QC_IOU:
+        raise AssertionError(f"mapping_tools: card vs CPU bboxes_dl {dl:.3e}, "
+                             f"bboxes_qc IoU {min(ious):.4f}")
+    if len(card_merged) != len(cpu_merged) or not all(
+            np.array_equal(a, b) for a, b in zip(card_merged, cpu_merged)):
+        raise AssertionError("mapping_tools: merged tracks card vs CPU differ")
+    return {"phase": "mapping_tools", "objects": len(full["bboxes_qc"]),
+            "solve_seconds": full["seconds"], "iterations": n_iters, "merged": len(merged),
+            "check_iterations": MAP_TOOLS_CHECK_ITERS,
+            "check_seconds": {"card": card["seconds"], "cpu": cpu["seconds"]},
+            "max_bboxes_dl_abs_diff": dl, "min_qc_iou_card_vs_cpu": min(ious),
+            "merged_card_equals_cpu": True}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2369,6 +2680,19 @@ def main() -> int:
         emit(report)
     paths.update(dist_paths)
     emit(cli_dist_run(scene_report["f1"]))
+    tracking_report, paths["tracking"] = tracking_run()
+    emit(tracking_report)
+    rehearsal_report, paths["tracking_rehearsal"], tracks_pickle = tracking_rehearsal_run()
+    emit(rehearsal_report)
+    assoc_report, paths["eval_association"] = eval_association_run()
+    emit(assoc_report)
+    for path in ("tracking", "tracking_rehearsal"):
+        for name, n in paths[path].items():
+            if n == 0:
+                raise AssertionError(f"{name} was never launched on the {path} path")
+    if paths["eval_association"]["fused_attention"] == 0:
+        raise AssertionError("fused_attention was never launched on the eval_association path")
+    emit(mapping_tools_run(tracks_pickle))
     for row in kernel_rows:
         if row["path"] == "lanes":      # the lane step's launches at this B
             row["launches"] = sp_full_report["launches_by_batch"][row["dtype"]][row["name"]].get(

@@ -7,7 +7,10 @@ card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -16,6 +19,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     Raises when a CUDA device is asked for (or implied) and none is present;
     an entry point never carries on on the CPU unless told to.
     """
+    import torch   # here: a worker process that runs only NumPy code starts without it
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

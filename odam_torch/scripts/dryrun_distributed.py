@@ -522,16 +522,18 @@ def _stage_assoc_train(size, device, mesh, report) -> dict:
     return out
 
 
-def run_stages(size: str = "tiny", device="cpu", mesh=None,
+def run_stages(size: str = "tiny", device=None, mesh=None,
                stages: tuple[str, ...] = STAGES) -> tuple[dict, dict]:
     """Run ``stages`` on this rank (``mesh``: the ``dp`` mesh over every
-    rank; None: one process).  Returns (arrays keyed ``stage/name``, a report
-    with each stage's seconds, peak memory on the card, launches and
-    timings)."""
+    rank; None: one process), on ``device`` (default: the card; it raises
+    without one).  Returns (arrays keyed ``stage/name``, a report with each
+    stage's seconds, peak memory on the card, launches and timings)."""
+    from .. import resolve_device
+
     fns = {"detr_train": _stage_detr_train, "detect": _stage_detect, "solve": _stage_solve,
            "collectives": _stage_collectives, "lanes": _stage_lanes,
            "assoc_train": _stage_assoc_train, "lane_rate": _stage_lane_rate}
-    dev = torch.device(device)
+    dev = resolve_device(device)
     arrays, report = {}, {"size": size, "device": str(dev), "seconds": {}, "peak_bytes": {}}
     for name in stages:
         if dev.type == "cuda":

@@ -1,6 +1,5 @@
-"""Rigid transforms, rotations and box corners (the subset of
-``odam_tpu/utils/geometry.py`` the online step, the mapping stage and the
-evaluation use).  Shape-polymorphic in the leading axes."""
+"""Rigid transforms, projection, rotations and box corners (counterpart of
+``odam_tpu/utils/geometry.py``).  Shape-polymorphic in the leading axes."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +17,29 @@ def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply a [..., 4, 4] rigid transform to [..., N, 3] points -> [..., N, 3]."""
     return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], pts) + T[..., None, :3, 3]
+
+
+def project(pts_c: torch.Tensor, K: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Perspective projection of camera-frame points [..., N, 3] with
+    intrinsics [..., 3, 3] -> [..., N, 3]: (u, v) pixels and the raw depth
+    (geometry_utils.py:276-316 with keep_z=True)."""
+    uvw = torch.einsum("...ij,...nj->...ni", K, pts_c)
+    z = uvw[..., 2:]
+    safe = torch.where(torch.abs(z) < eps, torch.sign(z) * eps + (z == 0) * eps, z)
+    return torch.cat([uvw[..., :2] / safe, z], dim=-1)
+
+
+def unproject(pixels: torch.Tensor, depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Back-project pixels [..., N, 2] at depths [..., N] to camera-frame
+    points [..., N, 3] (geometry_utils.py:258-273)."""
+    fx = K[..., 0, 0][..., None]
+    fy = K[..., 1, 1][..., None]
+    cx = K[..., 0, 2][..., None]
+    cy = K[..., 1, 2][..., None]
+    x = (pixels[..., 0] - cx) / fx
+    y = (pixels[..., 1] - cy) / fy
+    rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return rays * depth[..., None]
 
 
 def rotz(angle: torch.Tensor) -> torch.Tensor:
@@ -59,3 +81,21 @@ def box3d_corners(dims: torch.Tensor, angle: torch.Tensor, center: torch.Tensor)
     """Oriented (yaw-only) 3D box corners: [..., 8, 3]."""
     pts = corners_from_dims(dims)
     return torch.einsum("...ij,...nj->...ni", rotz(angle), pts) + center[..., None, :]
+
+
+def mean_rotation_z(angles: torch.Tensor, weights: torch.Tensor | None = None,
+                    axis: int = -1) -> torch.Tensor:
+    """Average a set of yaw angles on the circle (chordal mean via sin/cos)."""
+    s = torch.sin(angles)
+    c = torch.cos(angles)
+    if weights is not None:
+        s = s * weights
+        c = c * weights
+    return torch.atan2(torch.sum(s, dim=axis), torch.sum(c, dim=axis))
+
+
+def normalize_plane(plane: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Scale [..., 4] plane coefficients so the normal has unit norm
+    (quadric_helper.py:61-66)."""
+    n = torch.linalg.norm(plane[..., :3], dim=-1, keepdim=True)
+    return plane / torch.clamp(n, min=eps)

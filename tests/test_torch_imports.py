@@ -30,7 +30,12 @@ def test_every_module_imports_without_jax_or_odam_tpu():
                  "odam_torch.utils.metrics", "odam_torch.scripts.train_detector",
                  "odam_torch.scripts.train_associator", "odam_torch.runtime.scene_parallel",
                  "odam_torch.parallel.mesh", "odam_torch.parallel.distributed",
-                 "odam_torch.scripts.dryrun_distributed"}
+                 "odam_torch.scripts.dryrun_distributed", "odam_torch.runtime.heuristic_tracker",
+                 "odam_torch.eval.association", "odam_torch.eval.detection",
+                 "odam_torch.utils.files", "odam_torch.utils.visualization"}
+    required |= {"odam_torch.scripts." + m for m in (
+        "run_tracking", "eval_association", "run_multi_view", "run_merge",
+        "prior_calculation", "result_viewer")}
     assert required <= set(mods), required - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -98,3 +103,31 @@ def test_train_scripts_default_to_the_card_and_raise_without_one(monkeypatch, tm
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--synthetic", "--steps", "1", "--out_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_run_stages_and_the_eval_clis_default_to_the_card(monkeypatch, tmp_path):
+    """``run_stages``, ``run_tracking``, ``eval_association`` and
+    ``run_multi_view`` raise without a card unless asked for the CPU."""
+    import pickle
+
+    from odam_torch.scripts import dryrun_distributed, eval_association, run_multi_view
+    from odam_torch.scripts import run_tracking
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_distributed.run_stages("tiny", stages=("collectives",))
+    arrays, report = dryrun_distributed.run_stages("tiny", "cpu", stages=("collectives",))
+    assert report["device"] == "cpu" and arrays
+    hard = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_tracking.main(["--scans_root", os.path.join(hard, "scans"),
+                           "--out_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_association.main(["--tracks_dir", str(tmp_path)])
+    with open(tmp_path / "tracks.pkl", "wb") as f:
+        pickle.dump({"tracks": []}, f)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_multi_view.main(["--tracks", str(tmp_path / "tracks.pkl"), "--scene", "s",
+                             "--out", str(tmp_path / "mv.pkl")])
+    assert not (tmp_path / "mv.pkl").exists()
