@@ -8,8 +8,9 @@ Phases, each printed as one JSON line on stdout:
 
 1. toolchain: torch, CUDA, nvcc and Triton versions, the card's name and
    power limit;
-2. build: nvcc builds the attention kernels from odam_torch/csrc; ptxas'
-   registers and spills, and the HMMA (tensor-core) instructions of each
+2. build: nvcc builds the attention kernels and the LAP kernel from
+   odam_torch/csrc, one nvcc a source, started together; ptxas' registers
+   and spills, and the HMMA (tensor-core) instructions of each attention
    kernel in cuobjdump's SASS (it fails if a kernel has none);
 3. kernels: each kernel at every main-path shape (f32 and bf16) and at
    edge cases, held to its plain PyTorch version on the same inputs (f32
@@ -19,23 +20,36 @@ Phases, each printed as one JSON line on stdout:
    calls, replayed, and the back-to-back issue time of the same calls; the
    offline detector's batch-8 shapes too, which the routing sends to the
    plain path (so their times show what that routing costs);
+   lap: the LAP kernel (odam_torch/csrc/lap.cu) against its plain version,
+   the host solver, at the decode's shapes (B = 1 and 8), the matcher's 48
+   problems, tie-heavy integer costs, all-masked problems and 256 x 256:
+   assignments equal in every problem, total cost equal to scipy's, device
+   time from a CUDA graph beside the host path's (copy + host solve);
 4. modules: the full-width DETR on one 800x1071 frame and the full-width
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
+   detr_variants: the same DETR with pre-norm, the learned-encoding option,
+   the dilated last stage and the s2d stem, card against CPU, both
+   attention kernels launched; im2col and s2d held to the conv stem on the
+   card;
 5. slice: OdamPipeline at full width with seeded weights over 8 YUV 4:2:0
-   frames, with the kernel launch counts of every frame checked;
+   frames, with the kernel launch counts of every frame checked (one LAP
+   launch a frame once associated) and no host sync and no synchronizing
+   CUDA call once the store holds a track (frame 2 on);
 6. slice_bf16: the same with the same weights in bf16: the bf16
    instantiations of both kernels with the f32 launch counts, every
    frame's detection rows against the f32 slice's within 2% (BF16_ROW_RTOL)
    and its track ids equal to the f32 slice's;
 7. offline: the same 8 frames through BatchedDetector (batch 8) and the
    cached-detection pipeline: the online slice's track ids, rows within
-   1e-3, launches flash 0 and fused 16 a frame once tracks exist;
+   1e-3, launches flash 0, fused 16 and one LAP a frame once tracks exist,
+   no host sync from frame 2 (synchronizing CUDA calls reported);
 8. scene_parallel_full: SceneParallelRunner at full width, P = 1, 2, 4
    and 8 lanes of 8 uint8 frames each (every lane in its own order), f32
    then bf16, every lane against the serial f32 pipeline; aggregate
    frames/s, step and lane-frame times, launches a step (profiled), host
-   syncs, peak memory, and both kernels' launches at B = P;
+   syncs (none from step 2 on), one LAP launch a step, peak memory, and
+   both kernels' launches at B = P;
 9. mapping: optim_process -> merge_process -> optim_process at the default
    PipelineConfig (64 objects x 256 views x 1000 samples x 200 iterations)
    on a synthetic scene of 64 ground-truth boxes and 256 cameras at
@@ -66,9 +80,9 @@ Phases, each printed as one JSON line on stdout:
     attention path: one f32 step card against CPU (loss within 1e-4, each
     leaf's gradient within 1e-3), then 10 bf16 steps at batch 8, 512x672
     on one synthetic batch: step time, images/s, peak memory, the loss
-    falling, one host sync a step (the matcher's copy), frozen leaves
-    bit-equal, no attention kernel launched, and a profile of two steps
-    (host- or device-bound);
+    falling, one LAP launch a step and no synchronizing call in the
+    matcher, frozen leaves bit-equal, no attention kernel launched, and a
+    profile of two steps (host- or device-bound);
 15. train_assoc: the same for the associator at its defaults (20 steps,
     batch 8, no host sync);
 16. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
@@ -97,7 +111,8 @@ Phases, each printed as one JSON line on stdout:
     tracking_rehearsal's tracks; 5 iterations card against CPU (bboxes_dl
     within 1e-3, bboxes_qc IoU >= 0.95, merged tracks equal).
 
-Then the kernel table with the launch counts of every path, the card's name and power limit as nvidia-smi prints them,
+Then the kernel table (the LAP kernel's rows too) with the launch counts of
+every path, the card's name and power limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
 JAX.
 """
@@ -191,7 +206,7 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 
 def toolchain() -> dict:
-    from odam_torch.ops.cuda_attention import nvcc_path
+    from odam_torch.ops.build import nvcc_path
 
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
@@ -206,7 +221,7 @@ def toolchain() -> dict:
 
 
 def cuobjdump_path() -> str:
-    from odam_torch.ops.cuda_attention import nvcc_path
+    from odam_torch.ops.build import nvcc_path
 
     cands = [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), shutil.which("cuobjdump")]
     try:
@@ -239,19 +254,30 @@ def hmma_counts(library: str) -> dict:
 
 
 def build() -> dict:
-    from odam_torch.ops import cuda_attention
+    """Both kernel libraries from odam_torch/csrc, one nvcc each, started
+    together; ptxas' registers and spills, and the HMMA instructions of
+    each attention kernel."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    cuda_attention.load_library()
-    info = cuda_attention.BUILD_INFO
-    ptxas = [ln.strip() for ln in info.get("ptxas", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    hmma = hmma_counts(info["path"])
+    from odam_torch.ops import cuda_attention, lap
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(m.load_library) for m in (cuda_attention, lap)]:
+            job.result()
+    seconds = time.perf_counter() - t0
+    libs = {}
+    for name, info in (("attention", cuda_attention.BUILD_INFO), ("lap", lap.BUILD_INFO)):
+        libs[name] = {"seconds": info["seconds"] if not info["cached"] else "cached",
+                      "library": os.path.relpath(info["path"]),
+                      "ptxas": [ln.strip() for ln in info.get("ptxas", "").splitlines()
+                                if "registers" in ln or "spill" in ln or "smem" in ln]}
+    hmma = hmma_counts(cuda_attention.BUILD_INFO["path"])
     for kernel in ("flash_attn_kernel", "fused_attn_kernel"):
         found = {sym: n for sym, n in hmma.items() if kernel in sym}
         if not found or min(found.values()) == 0:
             raise AssertionError(f"{kernel}: no HMMA instruction in its SASS ({found})")
-    return {"phase": "build", "seconds": info["seconds"] if not info["cached"] else "cached",
-            "library": os.path.relpath(info["path"]), "ptxas": ptxas, "hmma": hmma}
+    return {"phase": "build", "seconds": seconds, "libraries": libs, "hmma": hmma}
 
 
 # ------------------------------------------------------------------ kernels
@@ -474,6 +500,130 @@ def kernel_checks(gen: torch.Generator) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------- lap
+
+LAP_SOURCE = "odam_torch/csrc/lap.cu"
+# not a Pallas kernel: JAX's exact solver is plain XLA while-loops
+LAP_REPLACES = "odam_tpu/ops/lap.py:32"
+LAP_SEED = 9
+VARIANTS_SEED = 13
+
+
+def _solve_input(fn, *args) -> torch.Tensor:
+    """The cost [S, R, C] that ``fn(*args)`` (run on the CPU) hands to
+    ``lap.solve``: the priced, transposed problems of a decode or a match."""
+    from odam_torch.ops import lap
+
+    seen, real = [], lap.solve
+    lap.solve = lambda cost: seen.append(cost) or real(cost)
+    try:
+        fn(*args)
+    finally:
+        lap.solve = real
+    return seen[0].reshape(-1, *seen[0].shape[-2:]).contiguous()
+
+
+def _lap_cases(rng) -> list[tuple[str, torch.Tensor]]:
+    """The solver's inputs on the main paths and at the edges."""
+    from odam_torch.ops import lap
+
+    def decode(B, n_tracks=48, n_dets=26, T=64, N=30):
+        score = torch.from_numpy(rng.random((B, T, N)).astype(np.float32))
+        rm, cm = torch.zeros(B, T, dtype=torch.bool), torch.zeros(B, N, dtype=torch.bool)
+        rm[:, :n_tracks], cm[:, :n_dets] = True, True
+        return _solve_input(lap.match_by_score, score, ASSOC_MATCH_THRESHOLD, rm, cm)
+
+    S, B, Q, M = 6, 8, 100, 8           # train_detector: 6 decoder layers x batch 8
+    cost = torch.from_numpy((rng.normal(size=(S, B, Q, M)) * 3).astype(np.float32))
+    tmask = torch.from_numpy(rng.random((B, M)) < 0.6)
+    match = _solve_input(lap.masked_assignment, cost, torch.ones(S, B, Q, dtype=torch.bool),
+                         tmask.expand(S, B, M))
+    return [
+        ("decode B=1 (48 tracks x 26 detections of 64 x 30)", decode(1)),
+        ("decode B=8 (lanes P=8)", decode(8)),
+        ("matcher (6 layers x 8 images, 100 queries x 8 targets)", match),
+        ("tie-heavy integer costs 0..3", torch.from_numpy(
+            rng.integers(0, 4, size=(16, 30, 64)).astype(np.float32))),
+        ("all-masked decode", decode(4, n_tracks=0, n_dets=0)),
+        ("256 x 256", torch.from_numpy(rng.normal(size=(1, 256, 256)).astype(np.float32))),
+    ]
+
+
+def lap_checks() -> tuple[dict, list[dict]]:
+    """The LAP kernel against its plain version (the host solver) on the
+    same inputs: assignments equal in every problem, total cost equal to
+    scipy's; the kernel's device time from a CUDA graph, beside the host
+    path's (the copy to the host and the plain solve) as its yardstick; and
+    the decode and the matcher whole on the card against the CPU."""
+    from scipy.optimize import linear_sum_assignment
+
+    from odam_torch.ops import lap
+
+    rng = np.random.default_rng(LAP_SEED)
+    rows = []
+    for label, cost in _lap_cases(rng):
+        S, R, C = cost.shape
+        gpu = cost.cuda()
+        got = lap.solve(gpu)
+        torch.cuda.synchronize()
+        want = lap.solve(cost)
+        if not torch.equal(got.cpu(), want):
+            bad = int((got.cpu() != want).any(-1).sum())
+            raise AssertionError(f"lap_solve {label}: {bad} of {S} problems differ from the "
+                                 "plain solver")
+        c = cost.numpy()
+        ours = np.take_along_axis(c, want.long().numpy()[..., None], -1)[..., 0].sum(-1)
+        best = np.array([c[s][linear_sum_assignment(c[s])].sum() for s in range(S)])
+        gap = float(np.abs(ours - best).max())
+        if not gap <= 1e-5 * max(1.0, float(np.abs(best).max())):
+            raise AssertionError(f"lap_solve {label}: total cost {gap:.3e} from scipy's")
+
+        def host_path():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lap.solve(gpu.cpu())
+            return (time.perf_counter() - t0) * 1e3
+
+        host_ms = sorted(host_path() for _ in range(5))[2]
+        n_bytes = 4 * S * R * C + 4 * S * R
+        rows.append({
+            "name": "lap_solve", "route": "cuda", "source": LAP_SOURCE,
+            "replaces": LAP_REPLACES, "case": label, "shape": {"S": S, "R": R, "C": C},
+            "dtype": "float32", "path": "lap", "launches": None,
+            "max_abs_err": 0.0, "tol": "assignments equal to the plain solver's; total cost "
+                                       "within 1e-5 x max(1, |cost|) of scipy's",
+            "total_cost_gap_scipy": gap,
+            "ms": graph_ms(lambda: lap.solve(gpu)), "issue_ms": cuda_ms(lambda: lap.solve(gpu)),
+            "plain_ms": host_ms, "plain_is": "copy to the host + the plain solver (median of 5)",
+            "library_ms": None,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_note": "bytes over 3.35 TB/s; the kernel is latency-bound (a chain of "
+                          "dependent warp reductions per Dijkstra step)",
+            "mbytes": n_bytes / 1e6,
+        })
+    # the whole decode (pricing, solve, scatter) and the matcher on the card
+    B, T, N = 8, 64, 30
+    score = torch.from_numpy(rng.random((B, T, N)).astype(np.float32))
+    rm = torch.from_numpy(rng.random((B, T)) < 0.75)
+    cm = torch.from_numpy(rng.random((B, N)) < 0.85)
+    dec = lap.match_by_score(score.cuda(), ASSOC_MATCH_THRESHOLD, rm.cuda(), cm.cuda())
+    if not torch.equal(dec.cpu(), lap.match_by_score(score, ASSOC_MATCH_THRESHOLD, rm, cm)):
+        raise AssertionError("match_by_score: the card's decode differs from the CPU's")
+    cost = rng.normal(size=(3, 40, 25)).astype(np.float32)       # R > C: the transpose
+    r_card, c_card = lap.linear_sum_assignment(torch.from_numpy(cost).cuda())
+    for s, (r, c) in enumerate(zip(r_card.cpu().numpy(), c_card.cpu().numpy())):
+        r_ref, c_ref = linear_sum_assignment(cost[s])
+        if not (np.array_equal(r, r_ref) and np.isclose(cost[s][r, c].sum(),
+                                                         cost[s][r_ref, c_ref].sum())):
+            raise AssertionError(f"linear_sum_assignment problem {s}: rows or total cost "
+                                 "differ from scipy's")
+    report = {"phase": "lap", "cases": len(rows), "all_equal_plain": True,
+              "decode_card_equals_cpu": True, "linear_sum_assignment_equals_scipy": True,
+              "device_ms": {r["case"]: r["ms"] for r in rows},
+              "host_path_ms": {r["case"]: r["plain_ms"] for r in rows}}
+    return report, rows
+
+
 # ------------------------------------------------------------------ modules
 
 def _intrinsics(img_h: int, img_w: int) -> np.ndarray:
@@ -499,10 +649,10 @@ def module_checks(rng) -> tuple[dict, object, object]:
     img = rng.normal(size=(1, 800, 1071, 3)).astype(np.float32)
     img_gpu = torch.from_numpy(img).cuda()
     with torch.no_grad():
-        ca.reset_counts()
+        _reset_counts()
         out_gpu = det_gpu(img_gpu)
         torch.cuda.synchronize()
-        detr_launches = dict(ca.LAUNCHES)
+        detr_launches = _launches()
         detr_ms = cuda_ms(lambda: det_gpu(img_gpu), reps=10, warmup=2)
         out_cpu = det_cpu(torch.from_numpy(img))
     detr_err = {}
@@ -515,7 +665,7 @@ def module_checks(rng) -> tuple[dict, object, object]:
             raise AssertionError(f"DETR {name}: card vs CPU max|diff| "
                                  f"{float((g - c).abs().max()):.3e}")
         detr_err[name] = float((g - c).abs().max())
-    if detr_launches != {"flash_attention": 12, "fused_attention": 6}:
+    if detr_launches != {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0}:
         raise AssertionError(f"DETR forward launches {detr_launches}")
 
     as_gpu = associator.build_associator(associator.AssociatorConfig(), seed=1)
@@ -536,10 +686,10 @@ def module_checks(rng) -> tuple[dict, object, object]:
     args = [torch.from_numpy(a) for a in (tracks, tm, dets, dm)] + [ASSOC_MATCH_THRESHOLD]
     args_gpu = [a.cuda() for a in args[:4]] + [ASSOC_MATCH_THRESHOLD]
     with torch.no_grad():
-        ca.reset_counts()
+        _reset_counts()
         o_gpu = as_gpu(*args_gpu)
         torch.cuda.synchronize()
-        assoc_launches = dict(ca.LAUNCHES)
+        assoc_launches = _launches()
         assoc_ms = cuda_ms(lambda: as_gpu(*args_gpu), reps=5, warmup=1)
         o_cpu = as_cpu(*args)
     Zg, Zc = o_gpu.log_assignment.cpu(), o_cpu.log_assignment
@@ -551,7 +701,7 @@ def module_checks(rng) -> tuple[dict, object, object]:
     if not torch.equal(o_gpu.matches.cpu(), o_cpu.matches) or n_matched == 0:
         raise AssertionError(f"associator matches differ between card and CPU "
                              f"({n_matched} matched on the CPU)")
-    if assoc_launches != {"flash_attention": 0, "fused_attention": 16}:
+    if assoc_launches != {"flash_attention": 0, "fused_attention": 16, "lap_solve": 1}:
         raise AssertionError(f"associator launches {assoc_launches}")
     report = {"phase": "modules",
               "detr": {"max_abs_err": detr_err, "tol": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
@@ -615,6 +765,83 @@ BF16_ROW_RTOL = 0.02
 OFFLINE_ROW_ATOL = 1e-3            # offline rows against the online slice's
 
 
+DETR_HEADS = ("pred_logits", "pred_boxes", "pred_angle", "pred_offset", "pred_size",
+              "pred_depth", "pred_obj_features")
+STEM_RTOL = 1e-5          # a stem rewrite against the literal conv, of the largest output
+
+
+def detr_variants_run(shape=SLICE_SHAPE, devices: tuple[str, str] = ("cuda", "cpu"),
+                      seed: int = VARIANTS_SEED) -> tuple[dict, dict]:
+    """The slice's full-width DETR with every option the port took last:
+    pre-norm, the learned-encoding option (read as JAX reads it: the sine
+    encoding), the dilated last stage (stride 16: 50 x 67 = 3350 image
+    tokens at 800x1071) and the s2d stem, on one frame, card against CPU
+    within the DETR bar, both attention kernels launched; then the stem's
+    three forms on the card on the same weights: im2col and s2d against the
+    literal conv within STEM_RTOL of its largest output, and the whole DETR
+    with each stem within the DETR bar of the conv stem's."""
+    from odam_torch.models import detr, resnet
+
+    card, cpu = (torch.device(d) for d in devices)
+    cfg = detr.DETRConfig(pre_norm=True, position_embedding="learned", dilation=True,
+                          stem="s2d")
+    models = {side: detr.build_detr(cfg, seed=0, device=dev)
+              for side, dev in (("card", card), ("cpu", cpu))}
+    img = np.random.default_rng(seed).normal(size=(1, *shape, 3)).astype(np.float32)
+    x = {side: torch.from_numpy(img).to(dev) for side, dev in (("card", card), ("cpu", cpu))}
+    with torch.no_grad():
+        _reset_counts()
+        out = models["card"](x["card"])
+        _sync(card)
+        launches = _launches(card.type == "cuda")
+        ms = cuda_ms(lambda: models["card"](x["card"]), reps=5, warmup=1) \
+            if card.type == "cuda" else None
+        ref = models["cpu"](x["cpu"])
+    err = {}
+    for name in DETR_HEADS:
+        g, c = out[name].float().cpu(), ref[name]
+        if not (torch.isfinite(g).all() and torch.allclose(g, c, atol=DETR_ATOL, rtol=DETR_RTOL)):
+            raise AssertionError(f"detr_variants {name}: card vs CPU max|diff| "
+                                 f"{float((g - c).abs().max()):.3e}")
+        err[name] = float((g - c).abs().max())
+    tokens = (shape[0] + 15) // 16 * ((shape[1] + 15) // 16)
+    want = {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0}
+    if card.type == "cuda" and launches != want:
+        raise AssertionError(f"detr_variants: launches {launches}, expected {want}")
+    backbone = models["card"].backbone
+    stems, heads = {}, {}
+    with torch.no_grad():
+        conv_out = backbone.conv1(x["card"].permute(0, 3, 1, 2))
+        conv_heads = None
+        for stem in ("conv", "im2col", "s2d"):
+            backbone.stem = stem
+            if stem != "conv":
+                got = resnet.STEMS[stem](x["card"].permute(0, 3, 1, 2),
+                                           backbone.conv1._compute_params()[0])
+                stems[stem] = float((got - conv_out).abs().max() / conv_out.abs().max())
+                if not stems[stem] <= STEM_RTOL:
+                    raise AssertionError(f"detr_variants: the {stem} stem is {stems[stem]:.3e} "
+                                         "of the largest output from the literal conv")
+            o = models["card"](x["card"])
+            if conv_heads is None:
+                conv_heads = o
+                continue
+            for name in DETR_HEADS:
+                if not torch.allclose(o[name], conv_heads[name], atol=DETR_ATOL,
+                                      rtol=DETR_RTOL):
+                    raise AssertionError(f"detr_variants: {name} with the {stem} stem against "
+                                         "the conv stem's beyond the DETR bar")
+            heads[stem] = max(float((o[n] - conv_heads[n]).abs().max()) for n in DETR_HEADS)
+    del models
+    return ({"phase": "detr_variants", "options": {"pre_norm": True, "dilation": True,
+                                                   "position_embedding": "learned",
+                                                   "stem": "s2d"},
+             "image": list(shape), "image_tokens": tokens, "card_vs_cpu_max_abs": err,
+             "tol": {"atol": DETR_ATOL, "rtol": DETR_RTOL, "stem_rtol": STEM_RTOL},
+             "forward_ms": ms, "launches": launches,
+             "stem_vs_conv_rel": stems, "heads_vs_conv_stem_max_abs": heads}, launches)
+
+
 def _slice_frames(rng) -> list:
     from odam_torch.data.transforms import rgb_to_yuv420
 
@@ -622,10 +849,45 @@ def _slice_frames(rng) -> list:
             for _ in range(4)]
 
 
+def _reset_counts() -> None:
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import lap
+
+    ca.reset_counts()
+    lap.reset_counts()
+
+
+def _launches(on_card: bool = True) -> dict:
+    """Every kernel's launches so far (off the card, its plain calls)."""
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import lap
+
+    if on_card:
+        return {**ca.LAUNCHES, **lap.LAUNCHES}
+    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS}
+
+
+def _sync_checked(fn, dev: torch.device):
+    """``fn()`` under torch's sync debug mode on the card: (its result, the
+    synchronizing CUDA calls it made; 0 off the card)."""
+    import warnings
+
+    if dev.type != "cuda":
+        return fn(), 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sum("synchronizing" in str(w.message) for w in caught)
+
+
 def _launch_delta(before: dict, before_dt: dict) -> tuple[dict, dict]:
     from odam_torch.ops import cuda_attention as ca
 
-    return ({k: ca.LAUNCHES[k] - before[k] for k in ca.LAUNCHES},
+    return ({k: n - before[k] for k, n in _launches().items()},
             {k: {d: ca.LAUNCHES_BY_DTYPE[k][d] - before_dt[k][d] for d in v}
              for k, v in ca.LAUNCHES_BY_DTYPE.items()})
 
@@ -633,7 +895,7 @@ def _launch_delta(before: dict, before_dt: dict) -> tuple[dict, dict]:
 def _snapshot() -> tuple[dict, dict]:
     from odam_torch.ops import cuda_attention as ca
 
-    return dict(ca.LAUNCHES), {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()}
+    return _launches(), {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()}
 
 
 def _check_dtype(where: str, by_dtype: dict, dtype: str) -> None:
@@ -657,25 +919,34 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
         det, assoc, processor.PipelineConfig(detect_threshold=0.0, score_threshold=0.0))
     pipe.init_sequence(_intrinsics(img_h, img_w), img_h, img_w)
     per_frame = []
-    ca.reset_counts()
+    _reset_counts()
     for f in range(n_frames):
         if f == 2:       # after the init and the first associated step
             _populate_store(pipe, np.random.default_rng(POPULATE_SEED))
         before, before_dt = _snapshot()
-        syncs = pipe.host_syncs_total
+        syncs = pipe.host_syncs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        result = pipe.process_frame(frames[f % 4], f, _pose(f))
+        result, sync_calls = _sync_checked(
+            lambda: pipe.process_frame(frames[f % 4], f, _pose(f)), pipe.device)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches, by_dtype = _launch_delta(before, before_dt)
-        expected = {"flash_attention": 12, "fused_attention": 6 if f == 0 else 22}
+        expected = {"flash_attention": 12, "fused_attention": 6 if f == 0 else 22,
+                    "lap_solve": 0 if f == 0 else 1}
         if launches != expected:
             raise AssertionError(f"{phase} frame {f}: launches {launches}, expected {expected}")
         _check_dtype(f"{phase} frame {f}", by_dtype, dtype)
-        per_frame.append({"frame": f, "ms": ms, "host_syncs": pipe.host_syncs_total - syncs,
+        host_syncs = pipe.host_syncs - syncs
+        # frame 1 waits for the store-count flag; once the store holds a
+        # track (frame 2 on) a frame waits for nothing: the decode is on the card
+        if f >= 2 and (host_syncs or sync_calls):
+            raise AssertionError(f"{phase} frame {f}: {host_syncs} host syncs, {sync_calls} "
+                                 "synchronizing CUDA calls once the store holds a track")
+        per_frame.append({"frame": f, "ms": ms, "host_syncs": host_syncs,
+                          "synchronizing_calls": sync_calls,
                           "n_detections": int(result.n_detections), "launches": launches})
-    slice_launches = dict(ca.LAUNCHES)
+    slice_launches = _launches()
     if any(ca.ALIGN_COPIES.values()):
         raise AssertionError(f"the {phase}'s attention inputs needed aligned copies: "
                              f"{ca.ALIGN_COPIES}")
@@ -762,13 +1033,13 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
                                           std).cpu().numpy() for f in range(SLICE_FRAMES)]
     detector = offline.BatchedDetector(det_gpu, cfg, batch_size=SLICE_FRAMES)
     detector.detect_frames(images, K, img_w, img_h)          # warm
-    ca.reset_counts()
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dets = detector.detect_frames(images, K, img_w, img_h)
     torch.cuda.synchronize()
     detect_ms = (time.perf_counter() - t0) * 1e3
-    detect_launches = dict(ca.LAUNCHES)
+    detect_launches = _launches()
     if any(detect_launches.values()):
         raise AssertionError(f"offline detector at batch {SLICE_FRAMES} launched {detect_launches}")
     cached = offline.CachedDetectionPipeline(as_gpu, cfg)
@@ -777,13 +1048,19 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
     for f, d in enumerate(dets):
         if f == 2:
             _populate_store(cached, np.random.default_rng(POPULATE_SEED))
-        before = dict(ca.LAUNCHES)
-        cached.process_detections(d, f, _pose(f))
-        launches = {k: ca.LAUNCHES[k] - before[k] for k in ca.LAUNCHES}
-        expected = {"flash_attention": 0, "fused_attention": 0 if f == 0 else 16}
+        before, syncs = _launches(), cached.host_syncs
+        _, sync_calls = _sync_checked(lambda: cached.process_detections(d, f, _pose(f)),
+                                      cached.device)
+        launches = {k: n - before[k] for k, n in _launches().items()}
+        expected = {"flash_attention": 0, "fused_attention": 0 if f == 0 else 16,
+                    "lap_solve": 0 if f == 0 else 1}
         if launches != expected:
             raise AssertionError(f"offline frame {f}: launches {launches}, expected {expected}")
-        per_frame.append(launches)
+        if f >= 2 and cached.host_syncs - syncs:
+            raise AssertionError(f"offline frame {f}: {cached.host_syncs - syncs} host syncs "
+                                 "once the store holds a track")
+        per_frame.append({**launches, "host_syncs": cached.host_syncs - syncs,
+                          "synchronizing_calls": sync_calls})
     rows, ids = _logged(cached, SLICE_FRAMES)
     rows_on, ids_on = _logged(online_pipe, SLICE_FRAMES)
     if not np.array_equal(ids, ids_on):
@@ -792,7 +1069,7 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
     if not row_err <= OFFLINE_ROW_ATOL:
         raise AssertionError(f"offline rows against the online slice {row_err:.3e} "
                              f"exceed {OFFLINE_ROW_ATOL}")
-    launches = dict(ca.LAUNCHES)
+    launches = _launches()
     report = {"phase": "offline", "frames": SLICE_FRAMES, "detect_batch": SLICE_FRAMES,
               "detect_ms_per_frame": detect_ms / SLICE_FRAMES, "detect_launches": detect_launches,
               "per_frame_launches": per_frame, "ids_equal_online": True,
@@ -829,13 +1106,11 @@ def _run_lanes(runner, scenes, img_h, img_w, sync_each: bool = False,
     ``sync_each``), and a torch.profiler window over the steps in
     ``profile_steps``.  Returns (the lane-stacked stores and logs, the
     record)."""
-    import warnings
-
     from torch.profiler import ProfilerActivity, profile
 
     dev = runner.device
     count_syncs = dev.type == "cuda" and not sync_each
-    record = {"ms": [], "n_detections": [], "synchronizing_calls": 0}
+    record = {"ms": [], "n_detections": [], "synchronizing_calls": []}
     inner = runner.step
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     prof = profile(activities=activities)
@@ -849,16 +1124,11 @@ def _run_lanes(runner, scenes, img_h, img_w, sync_each: bool = False,
         if sync_each:
             _sync(dev)
         t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if count_syncs:
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                res = inner(*args)
-            finally:
-                if count_syncs:
-                    torch.cuda.set_sync_debug_mode("default")
-        record["synchronizing_calls"] += sum("synchronizing" in str(w.message) for w in caught)
+        if count_syncs:
+            res, n_sync = _sync_checked(lambda: inner(*args), dev)
+            record["synchronizing_calls"].append(n_sync)
+        else:
+            res = inner(*args)
         if sync_each:
             _sync(dev)
         record["ms"].append((time.perf_counter() - t0) * 1e3)
@@ -961,21 +1231,26 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
                                device=dev))}
     report = {"phase": "scene_parallel_full", "image": [img_h, img_w],
               "frames_per_lane": n_frames, "transport": "uint8", "runs": {}}
-    by_batch = {}
+    by_batch, lap_launches = {}, {}
     for dtype, (det, assoc) in models.items():
         for P in lanes:
             where = f"scene_parallel_full {dtype} P={P}"
             runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, P, device=dev)
             _, timed = _run_lanes(runner, scenes[:P], img_h, img_w, sync_each=True)
             resident = _reset_peak(dev)
-            ca.reset_counts()
-            syncs = runner.host_syncs_total
+            _reset_counts()
             t0 = time.perf_counter()
             (stores, logs), rec = _run_lanes(runner, scenes[:P], img_h, img_w)
             seconds = time.perf_counter() - t0
-            launches = dict(ca.LAUNCHES if on_card else ca.PLAIN_CALLS)
+            launches = _launches(on_card)
             batches = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
-            host_syncs = runner.host_syncs_total - syncs
+            syncs = rec["synchronizing_calls"]
+            if on_card and any(syncs[2:]):     # every lane holds a track from step 2 on
+                raise AssertionError(f"{where}: synchronizing CUDA calls by step {syncs}")
+            if launches["lap_solve"] != n_frames:         # every lane's decode in one launch
+                raise AssertionError(f"{where}: {launches['lap_solve']} LAP launches in "
+                                     f"{n_frames} steps")
+            lap_launches[dtype] = lap_launches.get(dtype, 0) + launches["lap_solve"]
             peak = torch.cuda.max_memory_allocated() - resident if on_card else None
             if on_card and any(set(b) != {P} for b in batches.values()):
                 raise AssertionError(f"{where}: launches by batch {batches}, not all at B = {P}")
@@ -1010,8 +1285,8 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
                 "kernel_launches_per_step": profiled["kernel_launches_per_step"],
                 "kernel_launches_per_lane_frame": profiled["kernel_launches_per_step"] / P,
                 "profile": profiled,
-                "host_syncs_per_step": host_syncs / n_frames,
-                "synchronizing_calls_per_step": rec["synchronizing_calls"] / n_frames,
+                "host_syncs_per_step": sum(syncs) / n_frames if on_card else None,
+                "synchronizing_calls_by_step": syncs,
                 "peak_mbytes_above_resident": None if peak is None else peak / 1e6,
                 "launches": launches, "launches_by_batch": batches,
                 ("max_row_abs_diff_serial" if dtype == "float32"
@@ -1028,8 +1303,8 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
     report["tol"] = {"float32": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
                      "bfloat16": f"|bf16 - f32| <= {BF16_ROW_RTOL} x max(1, |f32|), pixel "
                                  "columns in units of the frame"}
-    counts = {dtype: {name: sum(b.values()) for name, b in per.items()}
-              for dtype, per in by_batch.items()}
+    counts = {dtype: {**{name: sum(b.values()) for name, b in per.items()},
+                      "lap_solve": lap_launches[dtype]} for dtype, per in by_batch.items()}
     return report, counts
 
 
@@ -1482,15 +1757,14 @@ def scene_parallel_hard_run(scene_f1: dict, out_root: str = os.path.join("chipru
     report = {"phase": "scene_parallel_hard", "device": device,
               "frames": [len(s["frames"]) for s in scenes], "serial_seconds": serial_s,
               "f1_serial": _f1(os.path.join(out_root, "serial"), scene_ids)["average"], "lanes": {}}
-    counts = {name: 0 for name in ca.LAUNCHES}
+    counts = {name: 0 for name in _launches()}
     for P in lanes:
-        counts_of = ca.LAUNCHES if dev.type == "cuda" else ca.PLAIN_CALLS
-        ca.reset_counts()
+        _reset_counts()
         runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, P, device=dev)
         t0 = time.perf_counter()
         outs = runner.run_scenes(scenes, img_h, img_w)
         seconds = time.perf_counter() - t0
-        launched = dict(counts_of)
+        launched = _launches(dev.type == "cuda")
         by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
         if dev.type == "cuda" and (by_batch["fused_attention"].get(P, 0) == 0
                                    or launched["flash_attention"]):
@@ -1520,13 +1794,13 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
     from odam_torch.scripts import eval_scan2cad, run_processor
 
     scene_ids, flags = _scene_flags()
-    ca.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     if run_processor.main(flags + ["--out_dir", out_root, "--device", device,
                                    "--scene_parallel", str(n_lanes)]) != 0:
         raise AssertionError("run_processor --scene_parallel failed")
     seconds = time.perf_counter() - t0
-    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    counts = _launches(device == "cuda")
     by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
     if device == "cuda" and by_batch["fused_attention"].get(n_lanes, 0) == 0:
         raise AssertionError(f"cli_scene_parallel: launches by batch {by_batch}")
@@ -1544,23 +1818,22 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
 
 
 def _counts_of(dev: torch.device) -> tuple[dict, dict]:
-    """The attention counters of ``dev``: launches on the card, plain calls
-    on the CPU, each with its split by dtype."""
+    """The kernel counters of ``dev`` as they stand: launches on the card,
+    plain calls on the CPU, and the attention's split by dtype."""
     from odam_torch.ops import cuda_attention as ca
 
-    if dev.type == "cuda":
-        return ca.LAUNCHES, ca.LAUNCHES_BY_DTYPE
-    return ca.PLAIN_CALLS, ca.PLAIN_CALLS_BY_DTYPE
+    by_dtype = ca.LAUNCHES_BY_DTYPE if dev.type == "cuda" else ca.PLAIN_CALLS_BY_DTYPE
+    return _launches(dev.type == "cuda"), {k: dict(v) for k, v in by_dtype.items()}
 
 
 def _counted(dev: torch.device, fn, *args):
-    """``fn(*args)`` and the attention calls it made on ``dev``: (result,
-    calls by kernel, calls by kernel and dtype)."""
-    counts, by_dtype = _counts_of(dev)
-    before, before_dt = dict(counts), {k: dict(v) for k, v in by_dtype.items()}
+    """``fn(*args)`` and the kernel calls it made on ``dev``: (result,
+    calls by kernel, attention calls by kernel and dtype)."""
+    before, before_dt = _counts_of(dev)
     result = fn(*args)
-    return (result, {k: counts[k] - before[k] for k in counts},
-            {k: {d: by_dtype[k][d] - before_dt[k][d] for d in v} for k, v in by_dtype.items()})
+    after, after_dt = _counts_of(dev)
+    return (result, {k: n - before[k] for k, n in after.items()},
+            {k: {d: n - before_dt[k][d] for d, n in v.items()} for k, v in after_dt.items()})
 
 
 def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
@@ -1580,17 +1853,13 @@ def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
 
     def recorded(kind):
         def call(obj, *args):
-            counts, by_dtype = _counts_of(obj.device)
-            before = dict(counts)
-            before_dt = {k: dict(v) for k, v in by_dtype.items()}
-            result = inner[kind](obj, *args)
-            entry = {k: counts[k] - before[k] for k in counts}
-            entry["by_dtype"] = {k: {d: by_dtype[k][d] - before_dt[k][d] for d in v}
-                                 for k, v in by_dtype.items()}
+            result, entry, by_dtype = _counted(obj.device, inner[kind], obj, *args)
+            entry["by_dtype"] = by_dtype
             if kind == "detect":
                 entry.update(detect=True, frames=len(args[0]))
             else:
-                entry.update(frame=int(args[1]), associated=obj.sequence["has_tracks"])
+                entry.update(frame=int(args[1]), associated=obj.sequence["has_tracks"],
+                             exact_decode=obj.associator.config.decode == "exact")
             frames.append(entry)
             return result
         return call
@@ -1644,10 +1913,10 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
     runs, results, f1 = {}, {}, {}
     for device in devices:
         out_dir = os.path.join(out_root, device)
-        ca.reset_counts()
+        _reset_counts()
         frames, scene_s, seconds = _run_cli(common + ["--out_dir", out_dir, "--device", device])
         runs[device] = {"frames": frames, "seconds": seconds, "scene_seconds": scene_s,
-                        "counts": dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)}
+                        "counts": _launches(device == "cuda")}
         results[device] = {}
         for s in scenes:
             with open(os.path.join(out_dir, s, s), "rb") as f:
@@ -1680,7 +1949,8 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
         raise AssertionError(f"F1 differs: card {f1[card]['average']}, cpu {f1[cpu]['average']}")
     for device, run in runs.items():
         for fr in run["frames"]:
-            want = {"flash_attention": 0, "fused_attention": 14 if fr["associated"] else 6}
+            want = {"flash_attention": 0, "fused_attention": 14 if fr["associated"] else 6,
+                    "lap_solve": int(fr["associated"] and fr["exact_decode"])}
             got = {k: fr[k] for k in want}
             if got != want:
                 raise AssertionError(f"{device} frame {fr['frame']}: attention calls {got}, "
@@ -1704,12 +1974,16 @@ def _expected_cli_calls(entry: dict, offline: bool) -> dict:
     encoder self, 6 decoder cross) and fused 6 (decoder self) and 16 more (8
     GNN layers x 2 directions) once the store holds a track; offline, the
     detector's batch is above KERNEL_MAX_BATCH (no call) and a frame makes
-    the 16 GNN calls once the store holds a track."""
+    the 16 GNN calls once the store holds a track.  Such a frame launches the
+    LAP kernel once with the exact decode (not with ``--profile fast``'s
+    greedy one)."""
     if entry.get("detect"):
-        return {"flash_attention": 0, "fused_attention": 0}
+        return {"flash_attention": 0, "fused_attention": 0, "lap_solve": 0}
+    gnn = 16 if entry["associated"] else 0
+    lap_solve = int(entry["associated"] and entry["exact_decode"])
     if offline:
-        return {"flash_attention": 0, "fused_attention": 16 if entry["associated"] else 0}
-    return {"flash_attention": 12, "fused_attention": 22 if entry["associated"] else 6}
+        return {"flash_attention": 0, "fused_attention": gnn, "lap_solve": lap_solve}
+    return {"flash_attention": 12, "fused_attention": 6 + gnn, "lap_solve": lap_solve}
 
 
 def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device: str = "cuda",
@@ -1745,9 +2019,9 @@ def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device
             "--out_dir", out_root, "--device", device, *extra]
     offline = "--offline" in extra
     dtype = extra[extra.index("--dtype") + 1] if "--dtype" in extra else "bfloat16"
-    ca.reset_counts()
+    _reset_counts()
     entries, scene_s, seconds = _run_cli(argv)
-    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    counts = _launches(device == "cuda")
     frames = [e for e in entries if not e.get("detect")]
     if len(frames) != n_frames or not any(fr["associated"] for fr in frames):
         raise AssertionError(f"{phase}: {len(frames)} frames, "
@@ -1914,8 +2188,9 @@ def _train_report(phase, model, state, before, ms, losses, syncs, samples, peak,
         raise AssertionError(f"{phase}: trained leaves did not move: {still[:4]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
-    if any(launches.values()):
-        raise AssertionError(f"{phase}: attention kernels launched {launches}")
+    attention = {k: n for k, n in launches.items() if k != "lap_solve"}
+    if any(attention.values()):
+        raise AssertionError(f"{phase}: attention kernels launched {attention}")
     median = float(np.median(ms[1:]))
     return {"phase": phase, "steps": len(ms), "step_ms": ms, "step_median_ms": median,
             "samples_per_s": samples / median * 1e3,
@@ -1924,7 +2199,8 @@ def _train_report(phase, model, state, before, ms, losses, syncs, samples, peak,
             "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
             "host_syncs_per_step": syncs / len(ms), "frozen_leaves_bit_equal": frozen,
             "trained_leaves_moved": moved, "trained_leaves_without_gradient": no_grad,
-            "attention_launches": launches, "step_counter": state.step, "device": str(dev)}
+            "attention_launches": attention, "lap_launches_per_step": launches["lap_solve"] / len(ms),
+            "step_counter": state.step, "device": str(dev)}
 
 
 def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAPE,
@@ -1954,7 +2230,7 @@ def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAP
         lr=float(cfg.get("lr", 1e-4)), lr_backbone=float(cfg.get("lr_backbone", 1e-5)),
         criterion=criterion.CriterionConfig(num_classes=dcfg.num_classes,
                                             eos_coef=float(cfg.get("eos_coef", 0.1))))
-    ca.reset_counts()
+    _reset_counts()
 
     def batch(b, h, w, on):
         images, targets = next(synthetic_batches(b, h, w, dcfg.num_classes, 8,
@@ -2007,20 +2283,39 @@ def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAP
     model = detr.build_detr(dataclasses.replace(dcfg, dtype=torch.bfloat16), seed=0,
                             device=dev)
     state = training.init_train_state(model, training.make_detr_optimizer(model, tcfg))
-    step = training.make_detr_train_step(tcfg)
+
+    class CountingMatcher(matcher.HungarianMatcher):
+        """The matcher with its synchronizing CUDA calls counted."""
+        syncs = 0
+
+        def __call__(self, *args):
+            out, n = _sync_checked(lambda: super(CountingMatcher, self).__call__(*args), dev)
+            self.syncs += n
+            return out
+
+    step = training.make_detr_train_step(tcfg, matcher=CountingMatcher(tcfg.criterion.matcher))
     images, targets = batch(*shape, dev)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    ca.reset_counts()
+    _reset_counts()
     resident = _reset_peak(dev)
-    ms, losses = _timed_steps(lambda: step(state, images, targets)["total"], n_steps, dev)
+    step_syncs = []
+
+    def timed_step():
+        loss, n = _sync_checked(lambda: step(state, images, targets)["total"], dev)
+        step_syncs.append(n)
+        return loss
+
+    ms, losses = _timed_steps(timed_step, n_steps, dev)
     peak = torch.cuda.max_memory_allocated() - resident if dev.type == "cuda" else None
-    launches = dict(ca.LAUNCHES)
+    launches = _launches(dev.type == "cuda")
     report = _train_report("train_detector", model, state, before, ms, losses,
-                           step.matcher.host_syncs, shape[0], peak, resident, launches,
+                           step.matcher.syncs, shape[0], peak, resident, launches,
                            dev, training.detr_label)
-    if dev.type == "cuda" and step.matcher.host_syncs != n_steps:
-        raise AssertionError(f"train_detector: {step.matcher.host_syncs} host syncs "
-                             f"in {n_steps} steps")
+    if launches["lap_solve"] != n_steps or (dev.type == "cuda" and step.matcher.syncs):
+        raise AssertionError(f"train_detector: {launches['lap_solve']} LAP solves and "
+                             f"{step.matcher.syncs} synchronizing matcher calls in {n_steps} "
+                             "steps (one solve and none a step wanted)")
+    report["synchronizing_calls_by_step"] = step_syncs
     report.update(dtype="bfloat16", batch=list(shape), dropout=dcfg.dropout,
                   check={"batch": list(check), "dtype": "float32", "dropout": 0.0,
                          "losses": check_loss, "loss_rel_err_vs_cpu": loss_err,
@@ -2055,7 +2350,7 @@ def train_assoc_run(device: str = "cuda", n_steps: int = TRAIN_STEPS["train_asso
     ds = datasets.AssociatorDataset(synthetic_scenes(rng), max_tracks=32, max_dets=16,
                                     window=50)
     b = next(ds.batches(batch_size, rng))
-    ca.reset_counts()
+    _reset_counts()
     models, losses = {}, {}
     for side, on in (("cpu", torch.device("cpu")), ("card", dev)):
         model = associator.build_associator(acfg, seed=0, device=on)
@@ -2079,12 +2374,19 @@ def train_assoc_run(device: str = "cuda", n_steps: int = TRAIN_STEPS["train_asso
     step = training.make_assoc_train_step()
     args = [torch.from_numpy(b[k]).to(dev) for k in BATCH_KEYS]
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    ca.reset_counts()
+    _reset_counts()
     resident = _reset_peak(dev)
-    ms, losses = _timed_steps(lambda: step(state, *args), n_steps, dev)
+    step_syncs = []
+
+    def timed_step():
+        loss, n = _sync_checked(lambda: step(state, *args), dev)
+        step_syncs.append(n)
+        return loss
+
+    ms, losses = _timed_steps(timed_step, n_steps, dev)
     peak = torch.cuda.max_memory_allocated() - resident if dev.type == "cuda" else None
-    launches = dict(ca.LAUNCHES)
-    report = _train_report("train_assoc", model, state, before, ms, losses, model.host_syncs,
+    launches = _launches(dev.type == "cuda")
+    report = _train_report("train_assoc", model, state, before, ms, losses, sum(step_syncs),
                            batch_size, peak, resident, launches, dev, lambda path: "main")
     report.update(dtype="float32", batch=batch_size, samples=len(ds),
                   check={"dtype": "float32", "loss_cpu": cpu_loss, "loss_card": card_loss,
@@ -2151,9 +2453,9 @@ def train_cli_run(out_root: str = os.path.join("runs", "train_cli"),
             "--min_views", "2", "--max_objs", "16", "--max_views", "16",
             "--out_dir", os.path.join(out_root, "run"),
             "--device", device]
-    ca.reset_counts()
+    _reset_counts()
     frames, scene_s, run_s = _run_cli(argv)
-    counts = dict(ca.LAUNCHES if device == "cuda" else ca.PLAIN_CALLS)
+    counts = _launches(device == "cuda")
     with open(os.path.join(out_root, "run", CLI_FULL_SCENE, CLI_FULL_SCENE), "rb") as f:
         out = pickle.load(f)
     if len(frames) != 2 or not all(np.isfinite(x).all() for x in out["tracks"]):
@@ -2380,8 +2682,7 @@ def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device
             "--sequences", os.path.join(SCENE_DATA, "val.txt"), "--detector_ckpt", "",
             "--detect_threshold", "0.0", "--track_threshold", "0.0", "--out_dir", out_root,
             "--device", device] + (["--max_frames", str(max_frames)] if max_frames else [])
-    counts, _ = _counts_of(dev)
-    ca.reset_counts()
+    _reset_counts()
     run_tracking.track_scene = recorded
     try:
         t0 = time.perf_counter()
@@ -2390,9 +2691,10 @@ def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device
         seconds = time.perf_counter() - t0
     finally:
         run_tracking.track_scene = inner
-    launched = dict(counts)
+    launched = _launches(dev.type == "cuda")
     for s in scenes:
-        want = {"flash_attention": 12 * s["frames"], "fused_attention": 6 * s["frames"]}
+        want = {"flash_attention": 12 * s["frames"], "fused_attention": 6 * s["frames"],
+                "lap_solve": 0}
         if s["launches"] != want:
             raise AssertionError(f"tracking {s['scene']}: launches {s['launches']}, expected {want}")
         _check_dtype(f"tracking {s['scene']}", s["launches_by_dtype"], "bfloat16")
@@ -2433,7 +2735,7 @@ def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking
     cfg = config_mod.merge_cfg([os.path.join(SCENE_DATA, "rehearsal.yaml")])
     index = scannet.SceneIndex(args.scans_root, [CLI_FULL_SCENE])
     runs = {}
-    ca.reset_counts()
+    _reset_counts()
     for side, device in zip(("card", "cpu"), devices):
         dev = torch.device(device)
         det, _ = run_processor.build_models(
@@ -2447,7 +2749,7 @@ def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking
         del det
     card, cpu = runs["card"], runs["cpu"]
     frames = len(card["stats"]["frame_ms"])
-    want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames}
+    want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames, "lap_solve": 0}
     for side, run in runs.items():
         if run["calls"] != want:
             raise AssertionError(f"tracking_rehearsal {side}: attention calls {run['calls']}, "
@@ -2526,14 +2828,14 @@ def eval_association_run(out_root: str = os.path.join("chiprun_out", "eval_assoc
 
     association.evaluate_scene = timed
     try:
-        ca.reset_counts()
+        _reset_counts()
         full, calls, by_dtype = _counted(card, eval_association.main, [
             "--config_path", TRACK_CONFIG, "--tracks_dir", tracks_dir, "--ckpt", seeded,
             "--device", devices[0]])
     finally:
         association.evaluate_scene = inner
     frames = full["TOTAL"].n_frames
-    if calls != {"flash_attention": 0, "fused_attention": 16 * frames}:
+    if calls != {"flash_attention": 0, "fused_attention": 16 * frames, "lap_solve": frames}:
         raise AssertionError(f"eval_association: launches {calls} over {frames} frames")
     _check_dtype("eval_association", by_dtype, "float32")
     rehearsal = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
@@ -2625,10 +2927,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernel_rows = kernel_checks(gen)
     emit({"phase": "kernel_checks", "cases": len(kernel_rows), "all_within_tolerance": True})
+    lap_report, lap_rows = lap_checks()
+    emit(lap_report)
+    kernel_rows += lap_rows
     modules, det_gpu, as_gpu = module_checks(rng)
     emit(modules)
-    frames = _slice_frames(rng)
     paths = {}
+    variants_report, paths["detr_variants"] = detr_variants_run()
+    emit(variants_report)
+    frames = _slice_frames(rng)
     slice_report, paths["slice"], slice_pipe = slice_run(det_gpu, as_gpu, frames,
                                                          profile=args.profile)
     emit(slice_report)
@@ -2666,8 +2973,8 @@ def main() -> int:
                                             extra=extra, phase=phase)
         emit(report)
     for path in ("cli_full", "cli_fast"):
-        for name, n in paths[path].items():
-            if n == 0:
+        for name in ("flash_attention", "fused_attention"):
+            if paths[path][name] == 0:
                 raise AssertionError(f"{name} was never launched on the {path} path")
     if paths["cli_offline"]["fused_attention"] == 0:
         raise AssertionError("fused_attention was never launched on the cli_offline path")
@@ -2686,13 +2993,18 @@ def main() -> int:
     emit(rehearsal_report)
     assoc_report, paths["eval_association"] = eval_association_run()
     emit(assoc_report)
-    for path in ("tracking", "tracking_rehearsal"):
-        for name, n in paths[path].items():
-            if n == 0:
+    for path in ("tracking", "tracking_rehearsal"):      # the host tracker solves no LAP
+        for name in ("flash_attention", "fused_attention"):
+            if paths[path][name] == 0:
                 raise AssertionError(f"{name} was never launched on the {path} path")
     if paths["eval_association"]["fused_attention"] == 0:
         raise AssertionError("fused_attention was never launched on the eval_association path")
     emit(mapping_tools_run(tracks_pickle))
+    for path in ("offline", "scene_parallel_full", "scene_parallel_full_bf16", "scene",
+                 "scene_parallel_hard", "cli_scene_parallel", "cli_full", "cli_offline",
+                 "train_detector", "eval_association"):     # cli_fast decodes greedily
+        if not paths[path].get("lap_solve"):
+            raise AssertionError(f"lap_solve was never launched on the {path} path")
     for row in kernel_rows:
         if row["path"] == "lanes":      # the lane step's launches at this B
             row["launches"] = sp_full_report["launches_by_batch"][row["dtype"]][row["name"]].get(
@@ -2700,7 +3012,8 @@ def main() -> int:
         else:
             main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
             row["launches"] = paths[main_path][row["name"]]
-        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
+        row["launches_by_path"] = {path: counts.get(row["name"])
+                                   for path, counts in paths.items()}
     emit({"kernels": kernel_rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

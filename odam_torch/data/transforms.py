@@ -68,6 +68,13 @@ _YUV_K = ((0.0, -0.344136, 1.772),
           (1.402, -0.714136, 0.0))
 
 
+def inference_transform(img: np.ndarray, short_side: int = 800,
+                        max_size: int = 1333) -> np.ndarray:
+    """The eval-time resize and normalization of one uint8 RGB frame."""
+    h, w = img.shape[:2]
+    return preprocess_image(img, *target_size(h, w, short_side, max_size))
+
+
 def rgb_to_yuv420(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """uint8 RGB [H, W, 3] -> (Y [H, W] uint8, UV [H/2, W/2, 2] uint8).
 
@@ -88,6 +95,28 @@ def rgb_to_yuv420(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return np.clip(y, 0, 255).astype(np.uint8), np.clip(uv, 0, 255).astype(np.uint8)
 
 
+def _chroma_up(uv: torch.Tensor, H: int, W: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(U - 128, V - 128) nearest-upsampled to [H, W] (edge-extended for odd
+    sizes), float32."""
+    uv_up = (uv.float() - 128.0).repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    pad_h, pad_w = H - uv_up.shape[0], W - uv_up.shape[1]
+    if pad_h > 0 or pad_w > 0:
+        uv_up = torch.nn.functional.pad(
+            uv_up.permute(2, 0, 1)[None], (0, max(pad_w, 0), 0, max(pad_h, 0)),
+            mode="replicate")[0].permute(1, 2, 0)
+    uv_up = uv_up[:H, :W]
+    return uv_up[..., 0], uv_up[..., 1]
+
+
+def yuv420_to_rgb_device(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`rgb_to_yuv420` on the tensors' device: float32
+    RGB [H, W, 3] in [0, 255], chroma nearest-upsampled."""
+    yf = y.float()
+    u, v = _chroma_up(uv, *yf.shape)
+    rgb = torch.stack([yf + 1.402 * v, yf - 0.344136 * u - 0.714136 * v, yf + 1.772 * u], -1)
+    return torch.clamp(rgb, 0.0, 255.0)
+
+
 def yuv420_to_normalized_device(y: torch.Tensor, uv: torch.Tensor, mean: torch.Tensor,
                                 std: torch.Tensor) -> torch.Tensor:
     """YUV 4:2:0 (uint8 tensors on the device) -> ImageNet-normalized float32
@@ -95,16 +124,7 @@ def yuv420_to_normalized_device(y: torch.Tensor, uv: torch.Tensor, mean: torch.T
     to RGB clipped to [0, 255], then ``rgb / (255 std) - mean / std``.
     ``mean`` and ``std`` are [3] float32 tensors on the frame's device."""
     yf = y.float()
-    uvf = uv.float() - 128.0
-    H, W = yf.shape
-    uv_up = uvf.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
-    pad_h, pad_w = H - uv_up.shape[0], W - uv_up.shape[1]
-    if pad_h > 0 or pad_w > 0:
-        uv_up = torch.nn.functional.pad(
-            uv_up.permute(2, 0, 1)[None], (0, max(pad_w, 0), 0, max(pad_h, 0)),
-            mode="replicate")[0].permute(1, 2, 0)
-    uv_up = uv_up[:H, :W]
-    u, v = uv_up[..., 0], uv_up[..., 1]
+    u, v = _chroma_up(uv, *yf.shape)
     (ku_r, ku_g, ku_b), (kv_r, kv_g, kv_b) = _YUV_K
     rgb = torch.stack([yf + (u * ku_r + v * kv_r), yf + (u * ku_g + v * kv_g),
                        yf + (u * ku_b + v * kv_b)], dim=-1)

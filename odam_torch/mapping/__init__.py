@@ -1,1 +1,1 @@
-"""Superquadric state, scene constraints, scale prior, the solve and the merge."""
+"""Superquadric and dual-quadric state, scene constraints, scale prior, the solves and the merge."""

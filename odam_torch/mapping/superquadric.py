@@ -63,6 +63,15 @@ def surface_points_world(params: SQParams, n_samples: int = 1000) -> torch.Tenso
     return pts + params.translate[..., None, :]
 
 
+def projected_bbox(params: SQParams, P_cw: torch.Tensor, n_samples: int = 256) -> torch.Tensor:
+    """The sampled surface projected by P_cw [..., 3, 4]: its pixel extremes
+    -> [..., 4] xyxy (reference sq_libs.py:547-554)."""
+    pts = surface_points_world(params, n_samples)
+    pix = torch.einsum("...ij,...sj->...si", P_cw, geo.to_homogeneous(pts))
+    uv = pix[..., :2] / pix[..., 2:].abs().clamp(min=1e-6)
+    return torch.cat([uv.amin(dim=-2), uv.amax(dim=-2)], dim=-1)
+
+
 def oriented_box_corners(params: SQParams, n_samples: int = 1000) -> torch.Tensor:
     """Oriented (z-up) 3D box of each sampled surface by the min-area sweep:
     [..., 8, 3]."""

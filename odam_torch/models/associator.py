@@ -5,11 +5,10 @@ same: padded detection rows (-1 features) take part in attention, padded
 track slots are masked out of attention keys, and the history fuser's mean
 runs over the full window, padded timesteps included.
 
-The exact decode runs on the host (see :mod:`odam_torch.ops.lap`): one
-blocking copy per call of the [B, T+1, N+1] log assignment and both masks,
-counted in ``Associator.host_syncs``.  Training needs no decode:
-:meth:`Associator.assignment` stops at the log assignment, with no host
-copy, and :func:`association_nll` is the loss.  ``use_kernels`` (JAX's
+The exact decode solves all B problems of a call in one launch of the LAP
+kernel (:func:`odam_torch.ops.lap.match_by_score`), on the device and with
+no host read.  Training needs no decode: :meth:`Associator.assignment`
+stops at the log assignment, and :func:`association_nll` is the loss.  ``use_kernels`` (JAX's
 ``use_pallas``) sends the GNN's attention to the CUDA kernels; training
 turns it off.  ``lanes`` in :meth:`Associator.forward` and
 :meth:`Associator.assignment` is the number of scenes stacked on the batch
@@ -50,7 +49,7 @@ class AssociatorConfig:
     self_gnn_layers: Sequence[str] = ("self", "self")
     sinkhorn_iterations: int = 100
     num_heads: int = 4
-    decode: str = "exact"  # "exact" (Hungarian on the host) | "greedy" (on device)
+    decode: str = "exact"  # "exact" (Hungarian, the LAP kernel) | "greedy"
     dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
     use_kernels: bool = True       # the attention kernels (JAX: use_pallas)
 
@@ -130,7 +129,6 @@ class Associator(nn.Module):
                             AttentionalPropagation(D, c.num_heads, c.dtype, c.use_kernels))
         self.final_proj = Dense(D, D, dtype=c.dtype)
         self.bin_score = nn.Parameter(torch.ones(()))
-        self.host_syncs = 0
 
     def forward(self, tracks: torch.Tensor, track_mask: torch.Tensor,
                 detections: torch.Tensor, det_mask: torch.Tensor,
@@ -188,24 +186,8 @@ class Associator(nn.Module):
         return Z, scores
 
     def _decode(self, Z, track_mask, det_mask, threshold: float) -> torch.Tensor:
-        if self.config.decode == "greedy":
-            return lap.greedy_peel_match(torch.exp(Z[:, :-1, :-1]), threshold, track_mask,
-                                         det_mask)
-        B, T1, N1 = Z.shape
-        packed = torch.cat([Z.reshape(B, -1), track_mask.float(), det_mask.float()], dim=1)
-        if packed.device.type != "cpu":
-            packed = packed.cpu()          # the one blocking device-to-host read
-            self.host_syncs += 1
-        z = packed[:, :T1 * N1].reshape(B, T1, N1)
-        tm = packed[:, T1 * N1:T1 * N1 + T1 - 1] > 0.5
-        dm = packed[:, T1 * N1 + T1 - 1:] > 0.5
-        matches = torch.stack([
-            lap.match_by_score(torch.exp(z[b, :-1, :-1]), threshold, tm[b], dm[b])
-            for b in range(B)
-        ])
-        if Z.device.type == "cpu":
-            return matches
-        return matches.pin_memory().to(Z.device, non_blocking=True)
+        decode = lap.greedy_peel_match if self.config.decode == "greedy" else lap.match_by_score
+        return decode(torch.exp(Z[:, :-1, :-1]), threshold, track_mask, det_mask)
 
 
 def association_nll(Z: torch.Tensor, gt_pairs: torch.Tensor,

@@ -7,6 +7,7 @@ Flax tree's names, so a leaf converts by its path:
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (the stem ``conv1/kernel``
   included);
 - LayerNorm and GroupNorm ``scale`` -> ``weight``;
+- Embed ``embedding`` -> Embedding ``weight``;
 - everything else keeps its name and layout: biases, the four frozen-BN
   leaves, ``query_embed`` and ``bin_score``.
 
@@ -59,7 +60,7 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"kernel {'/'.join(path)} has rank {arr.ndim}")
             name = "weight"
-        elif name == "scale":
+        elif name in ("scale", "embedding"):
             name = "weight"
         key = ".".join(path[:-1] + (name,))
         if key in out:
@@ -87,13 +88,16 @@ def load_flax_npz(path: str) -> dict:
 def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
     """The Flax path of ``module.state_dict()[key]``: the module path, then
     ``kernel`` for a Dense or Conv weight, ``scale`` for a LayerNorm or
-    GroupNorm weight, else the tensor's own name."""
+    GroupNorm weight, ``embedding`` for an Embedding's, else the tensor's
+    own name."""
     *parents, name = key.split(".")
     owner = module.get_submodule(".".join(parents))
     if name == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d)):
         name = "kernel"
     elif name == "weight" and isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
         name = "scale"
+    elif name == "weight" and isinstance(owner, nn.Embedding):
+        name = "embedding"
     return tuple(parents) + (name,)
 
 
@@ -160,7 +164,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
     """Seeded init with Flax's defaults: lecun-normal Dense/Conv kernels, zero
-    biases, unit/zero norm affines, ``normal(1.0)`` for ``query_embed`` and
+    biases, unit/zero norm affines, Embed's truncated normal of std
+    features^-1/2, ``normal(1.0)`` for ``query_embed`` and
     1 for ``bin_score``.  Draws on the CPU, so a seed gives the same weights
     on every device."""
     gen = torch.Generator().manual_seed(seed)
@@ -173,6 +178,8 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            _lecun_normal_(mod.weight, mod.weight.shape[1], gen)
     with torch.no_grad():
         for name, p in module.named_parameters(recurse=False):
             if name == "query_embed":

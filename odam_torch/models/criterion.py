@@ -17,7 +17,7 @@ shares sum over the ranks to the global loss, and their gradients to the
 global gradient (:mod:`odam_torch.models.training` sums them).
 
 The matches come from :class:`odam_torch.models.matcher.HungarianMatcher`
-(one host copy for all prediction sets), or are passed in: a seeded model's
+(one LAP launch for all prediction sets, no host read), or are passed in: a seeded model's
 queries can score within rounding of each other, and then a test holds two
 implementations to the same match.
 

@@ -1,8 +1,9 @@
 """DETR-style 3D-aware per-frame detector, with its fixed-shape postprocess.
 
-Counterpart of ``odam_tpu/models/detr.py``: frozen-BN ResNet-50 (or
-TinyBackbone) backbone, sine positional encoding, post-norm transformer, six
-heads (class, 2D box, 2D center offset, azimuth bins, 3D size, depth) with
+Counterpart of ``odam_tpu/models/detr.py``: frozen-BN ResNet-50 (its
+stem literal, ``s2d`` or ``im2col``; its last stage dilated with
+``dilation``) or TinyBackbone, sine positional encoding, a post-norm or
+pre-norm (``pre_norm``) transformer, six heads (class, 2D box, 2D center offset, azimuth bins, 3D size, depth) with
 ``aux_outputs``, and ``postprocess``: softmax threshold, unprojection of the
 3D center, angle decode, the fixpoint 3D NMS and a MAX_DETECTIONS-slot
 ``Detections`` contract.
@@ -52,24 +53,20 @@ class DETRConfig:
     num_angle_bins: int = 30
     backbone: str = "resnet50"     # "resnet50" | "tiny"
     backbone_stage: int = 4        # feature stage fed to the transformer
+    pre_norm: bool = False         # the transformer's normalize_before
+    dilation: bool = False         # ResNet-50's last stage dilated, not strided
+    # Kept and not read, as in the JAX package, whose DETR always takes the
+    # sine encoding (odam_tpu/models/detr.py:50,138): "learned" gives the
+    # same model.  position.LearnedPositionEncoding is the learned module.
+    position_embedding: str = "sine"
+    stem: str = "conv"             # ResNet-50's stem: "conv" | "s2d" | "im2col"
     dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
     use_kernels: bool = True       # the attention kernels (JAX: use_pallas)
 
     @classmethod
     def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32,
                  use_kernels: bool = True) -> "DETRConfig":
-        """Build from the reference YAML schema (configs/detr_scan_net.yaml).
-
-        Options the port does not have yet (pre-norm, dilation, the learned position
-        encoding, the s2d/im2col stems; ROADMAP Queue 1 item 3) raise.
-        """
-        unported = {"pre_norm": False, "dilation": False, "position_embedding": "sine",
-                    "stem": "conv"}
-        for key, supported in unported.items():
-            if cfg.get(key, supported) != supported:
-                raise NotImplementedError(
-                    f"DETR option {key}={cfg.get(key)!r} is not ported yet (ROADMAP Queue 1 "
-                    f"item 3); the port supports {key}={supported!r}")
+        """Build from the reference YAML schema (configs/detr_scan_net.yaml)."""
         return cls(
             num_classes=int(cfg.get(
                 "num_classes", 18 if cfg.get("dataset_file", "scan_net") == "scan_net" else 20)),
@@ -83,6 +80,10 @@ class DETRConfig:
             aux_loss=bool(cfg.get("aux_loss", True)),
             backbone=cfg.get("backbone", "resnet50"),
             backbone_stage=int(cfg.get("backbone_stage", 4)),
+            pre_norm=bool(cfg.get("pre_norm", False)),
+            dilation=bool(cfg.get("dilation", False)),
+            position_embedding=cfg.get("position_embedding", "sine"),
+            stem=cfg.get("stem", "conv"),
             dtype=dtype,
             use_kernels=use_kernels,
         )
@@ -117,14 +118,15 @@ class DETR(nn.Module):
         if c.backbone == "tiny":
             self.backbone = resnet.TinyBackbone(return_stages=(c.backbone_stage,), dtype=dt)
         elif c.backbone == "resnet50":
-            self.backbone = resnet.ResNet(return_stages=(c.backbone_stage,), dtype=dt)
+            self.backbone = resnet.resnet50(dt, c.dilation, (c.backbone_stage,), c.stem)
         else:
             raise ValueError(f"unknown backbone {c.backbone!r}")
         D = c.hidden_dim
         self.input_proj = Conv(self.backbone.channels(c.backbone_stage), D, 1, dtype=dt)
         self.query_embed = nn.Parameter(torch.zeros(c.num_queries, D))
         self.transformer = Transformer(D, c.nheads, c.enc_layers, c.dec_layers,
-                                       c.dim_feedforward, c.dropout, dt, c.use_kernels)
+                                       c.dim_feedforward, c.dropout, dt, c.use_kernels,
+                                       c.pre_norm)
         self.class_embed = Dense(D, c.num_classes + 1, dtype=dt)
         self.bbox_embed = HeadMLP(D, D, 4, dtype=dt)
         self.offset_embed = HeadMLP(D, D, 2, dtype=dt)

@@ -1,14 +1,13 @@
 """Hungarian set matcher for DETR training.
 
 Counterpart of ``odam_tpu/models/matcher.py``: cost = 5 * L1(box) + 1 *
-(-prob[class]) + 2 * (-GIoU), solved per image as a linear assignment.  The
-JAX package solves it on the device inside the train step.  Here the cost
-matrices are computed on the device for the final decoder layer and every
-auxiliary one, stacked, and copied to the host once a step
-(:class:`HungarianMatcher`, counted in ``host_syncs``); the B x (aux + 1)
-assignments are then solved there by :func:`odam_torch.ops.lap.masked_assignment`,
-the same float32 steps and tie-breaks as JAX's solver.  With Q queries above
-M targets that is its transposed branch.
+(-prob[class]) + 2 * (-GIoU), solved per image as a linear assignment on
+the device inside the train step, as in the JAX package.  The cost matrices
+of the final decoder layer and every auxiliary one are stacked, and all
+(aux + 1) x B assignments go to :func:`odam_torch.ops.lap.masked_assignment`
+at once: one launch of the LAP kernel a step, with no host read
+(:class:`HungarianMatcher`).  With Q queries above M targets that is its
+transposed branch.
 
 Targets are padded: ``classes`` [B, M] int, ``boxes`` [B, M, 4] cxcywh,
 ``mask`` [B, M] validity.  A match ``tgt4query`` [B, Q] is int32: the target
@@ -47,14 +46,10 @@ def match_cost(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, tgt_classes:
 
 
 class HungarianMatcher:
-    """Matches every prediction set of a step with one host copy.
-
-    ``host_syncs`` counts the blocking device-to-host copies (one a call on
-    the card, none on the CPU)."""
+    """Matches every prediction set of a step in one batched solve."""
 
     def __init__(self, cfg: MatcherConfig = MatcherConfig()):
         self.cfg = cfg
-        self.host_syncs = 0
 
     @torch.no_grad()
     def __call__(self, sets: list[dict], tgt_classes: torch.Tensor, tgt_boxes: torch.Tensor,
@@ -64,20 +59,10 @@ class HungarianMatcher:
         on the predictions' device."""
         cost = torch.stack([match_cost(s["pred_logits"], s["pred_boxes"], tgt_classes,
                                        tgt_boxes, self.cfg) for s in sets])     # [S, B, Q, M]
-        S, B, Q, M = cost.shape
-        packed = torch.cat([cost.reshape(-1), tgt_mask.reshape(-1).float()])
-        dev = packed.device
-        if dev.type != "cpu":
-            packed = packed.cpu()          # the step's one blocking device-to-host read
-            self.host_syncs += 1
-        cost = packed[:S * B * Q * M].reshape(S, B, Q, M)
-        mask = packed[S * B * Q * M:].reshape(B, M) > 0.5
-        rows = torch.ones(Q, dtype=torch.bool)
-        out = torch.stack([torch.stack([lap.masked_assignment(cost[s, b], rows, mask[b])
-                                        for b in range(B)]) for s in range(S)])
-        if dev.type != "cpu":
-            out = out.pin_memory().to(dev, non_blocking=True)
-        return list(out.unbind(0))
+        S, B, Q, _ = cost.shape
+        rows = torch.ones((S, B, Q), dtype=torch.bool, device=cost.device)
+        cols = tgt_mask.bool().expand(S, *tgt_mask.shape)
+        return list(lap.masked_assignment(cost, rows, cols).unbind(0))
 
 
 def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,

@@ -1,7 +1,7 @@
 """Positional encodings for the DETR transformer and the associator.
 
-Counterpart of ``odam_tpu/models/position.py`` (sine and timestep
-encodings; the learned variant waits).  Outputs are channels-last, as there.
+Counterpart of ``odam_tpu/models/position.py``: the sine, learned and
+timestep encodings.  Outputs are channels-last, as there.
 """
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import math
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
@@ -40,6 +41,26 @@ def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
     pos_x = torch.stack([pos_x[..., 0::2].sin(), pos_x[..., 1::2].cos()], dim=-1).flatten(-2)
     pos_y = torch.stack([pos_y[..., 0::2].sin(), pos_y[..., 1::2].cos()], dim=-1).flatten(-2)
     return torch.cat([pos_y, pos_x], dim=-1).to(dtype)
+
+
+class LearnedPositionEncoding(nn.Module):
+    """Learned row and column embeddings: ``(B, H, W)`` -> [B, H, W, 2 F],
+    the column's features first, then the row's.  Module names follow the
+    Flax tree (``row_embed`` / ``col_embed``, each an ``embedding``)."""
+
+    def __init__(self, num_pos_feats: int = 128, max_size: int = 50,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.row_embed = nn.Embedding(max_size, num_pos_feats)
+        self.col_embed = nn.Embedding(max_size, num_pos_feats)
+
+    def forward(self, feature_shape: tuple[int, int, int]) -> torch.Tensor:
+        B, H, W = feature_shape
+        row, col = self.row_embed.weight[:H], self.col_embed.weight[:W]
+        F = row.shape[-1]
+        pos = torch.cat([col[None, :, :].expand(H, W, F), row[:, None, :].expand(H, W, F)], -1)
+        return pos[None].expand(B, H, W, 2 * F).to(self.compute_dtype)
 
 
 def timestep_encoding(position: torch.Tensor, d_model: int = 256) -> torch.Tensor:

@@ -271,8 +271,8 @@ def make_detr_train_step(cfg: DetrTrainConfig,
     matches=None) -> metrics`` (tensors on the device).  Dropout masks are
     drawn from a generator seeded with the step count, as JAX seeds with
     ``jax.random.key(step)`` (with a ``mesh``: ``step * world + rank``); the
-    matches come from ``matcher`` (one host copy a step, counted in its
-    ``host_syncs``) unless given.  With a ``mesh``, ``images`` and
+    matches come from ``matcher`` (one LAP launch a step, no host read)
+    unless given.  With a ``mesh``, ``images`` and
     ``targets`` are this rank's rows of the global batch (``matches`` too),
     and the metrics are the global batch's."""
     matcher = matcher or matcher_mod.HungarianMatcher(cfg.criterion.matcher)

@@ -1,9 +1,11 @@
-"""DETR transformer encoder/decoder (post-norm, batch-first).
+"""DETR transformer encoder/decoder (batch-first), post-norm or pre-norm.
 
 Counterpart of ``odam_tpu/models/transformer.py``: separate q/k/v/out
 projections around the shared attention core, positions added to queries
 and keys only, LayerNorm eps 1e-6 (Flax's default), and the decoder's
-per-layer intermediate stack, each normed by ``decoder_norm``.  Dropout
+per-layer intermediate stack, each normed by ``decoder_norm``.
+``normalize_before`` (DETR's ``pre_norm``) norms each block's input instead
+of its residual sum and adds ``encoder_norm`` after the last encoder layer.  Dropout
 sits where Flax's does (three sites in an encoder layer, four in a decoder
 layer) and is active only in ``.train()`` mode, with its masks drawn from
 the ``generator`` passed to the forward.  ``dtype`` is the compute dtype
@@ -48,9 +50,10 @@ class _Layer(nn.Module):
     """Shared by both layer kinds: the feed-forward block and dropout."""
 
     def __init__(self, d_model: int, dim_feedforward: int, dropout_rate: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, normalize_before: bool):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.normalize_before = normalize_before
         self.linear1 = Dense(d_model, dim_feedforward, dtype=dtype)
         self.linear2 = Dense(dim_feedforward, d_model, dtype=dtype)
 
@@ -64,14 +67,20 @@ class _Layer(nn.Module):
 class EncoderLayer(_Layer):
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
                  dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = True):
-        super().__init__(d_model, dim_feedforward, dropout_rate, dtype)
+                 use_kernels: bool = True, normalize_before: bool = False):
+        super().__init__(d_model, dim_feedforward, dropout_rate, dtype, normalize_before)
         self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, use_kernels)
         self.norm1 = LayerNorm(d_model, LN_EPS, dtype)
         self.norm2 = LayerNorm(d_model, LN_EPS, dtype)
 
     def forward(self, src, pos, key_padding_mask=None, generator=None, lanes: int = 1,
                 shards: int = 1):
+        if self.normalize_before:
+            s2 = self.norm1(src)
+            qk = s2 + pos
+            src = src + self.drop(self.self_attn(qk, qk, s2, key_padding_mask, lanes, shards),
+                                  generator)
+            return src + self.drop(self.ffn(self.norm2(src), generator), generator)
         qk = src + pos
         src = self.norm1(src + self.drop(self.self_attn(qk, qk, src, key_padding_mask, lanes,
                                                         shards), generator))
@@ -81,8 +90,8 @@ class EncoderLayer(_Layer):
 class DecoderLayer(_Layer):
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
                  dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = True):
-        super().__init__(d_model, dim_feedforward, dropout_rate, dtype)
+                 use_kernels: bool = True, normalize_before: bool = False):
+        super().__init__(d_model, dim_feedforward, dropout_rate, dtype, normalize_before)
         self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, use_kernels)
         self.multihead_attn = MultiHeadAttention(d_model, num_heads, dtype, use_kernels)
         self.norm1 = LayerNorm(d_model, LN_EPS, dtype)
@@ -91,6 +100,16 @@ class DecoderLayer(_Layer):
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
                 generator=None, lanes: int = 1, shards: int = 1):
+        if self.normalize_before:
+            t2 = self.norm1(tgt)
+            qk = t2 + query_pos
+            tgt = tgt + self.drop(self.self_attn(qk, qk, t2, lanes=lanes, shards=shards),
+                                  generator)
+            t2 = self.norm2(tgt)
+            tgt = tgt + self.drop(self.multihead_attn(
+                t2 + query_pos, memory + pos, memory, memory_key_padding_mask, lanes, shards),
+                generator)
+            return tgt + self.drop(self.ffn(self.norm3(tgt), generator), generator)
         qk = tgt + query_pos
         tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt, lanes=lanes, shards=shards),
                                          generator))
@@ -104,15 +123,17 @@ class Transformer(nn.Module):
     def __init__(self, d_model: int = 256, num_heads: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, dim_feedforward: int = 2048,
                  dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, normalize_before: bool = False):
         super().__init__()
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
-        args = (d_model, num_heads, dim_feedforward, dropout_rate, dtype, use_kernels)
+        args = (d_model, num_heads, dim_feedforward, dropout_rate, dtype, use_kernels,
+                normalize_before)
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer{i}", EncoderLayer(*args))
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer{i}", DecoderLayer(*args))
+        self.encoder_norm = LayerNorm(d_model, LN_EPS, dtype) if normalize_before else None
         self.decoder_norm = LayerNorm(d_model, LN_EPS, dtype)
 
     def forward(self, src: torch.Tensor, mask: torch.Tensor, query_embed: torch.Tensor,
@@ -136,6 +157,8 @@ class Transformer(nn.Module):
         for i in range(self.num_encoder_layers):
             memory = getattr(self, f"encoder_layer{i}")(memory, pos_seq, mask_seq, generator,
                                                         lanes, shards)
+        if self.encoder_norm is not None:
+            memory = self.encoder_norm(memory)
 
         query_pos = query_embed[None].expand(B, -1, -1).to(src.dtype)
         out = torch.zeros_like(query_pos)

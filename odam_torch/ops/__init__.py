@@ -1,1 +1,1 @@
-"""Attention kernels, optimal transport, assignment and surface sampling."""
+"""Attention and LAP kernels with their builder, optimal transport, assignment and surface sampling."""

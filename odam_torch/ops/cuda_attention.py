@@ -37,30 +37,22 @@ aligned is copied first, and the copy is counted in ``ALIGN_COPIES``.
 
 The library is built at first use with ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``odam_torch/_build/``, keyed by a hash
-of the sources, and loaded with ctypes.
+of the sources (:mod:`.build`), and loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
+
+from . import build
 
 NEG_INF = -1e9
 FUSED_MAX_KEYS = 256          # the fused kernel holds every key: Lk < 256
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "attention.cu",)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = (build.PKG / "csrc" / "attention.cu",)
 
 # Launch counts of the CUDA kernels, and calls of the plain versions that a
 # wrapper made for CPU tensors (the same routing, observable in CPU tests).
@@ -107,38 +99,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", attn, v.float()).to(q.dtype)
 
 
-def nvcc_path() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA attention kernels are built on "
-                       "first use and need the CUDA toolkit")
-
-
 def build_library() -> Path:
     """Compile the kernels into a shared library (cached by source hash)."""
-    digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libodam_attention_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        BUILD_INFO.update(path=str(out), seconds=None, cached=True)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=proc.stderr)
-    return out
+    return build.build_library("odam_attention", SOURCES, BUILD_INFO)
 
 
 def load_library() -> ctypes.CDLL:

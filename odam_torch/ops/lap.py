@@ -1,23 +1,70 @@
 """Linear assignment: the exact shortest-augmenting-path solver and the decodes.
 
 Counterpart of ``odam_tpu/ops/lap.py``.  The JAX package runs the solver on
-the TPU inside its step; its Dijkstra and augmentation loops exit on the
-data.  Here the exact decode runs on the host, on purpose: the associator
-copies its [T+1, N+1] log assignment to the CPU once per frame and
-:func:`match_by_score` solves it there with the same float32 arithmetic and
-tie-breaks, step for step.  :func:`greedy_peel_match` is plain tensor code
-and runs on any device.
+the TPU inside its step.  Here :func:`solve` runs a batch of problems
+[S, R, C] (R <= C) in one launch of the hand-written CUDA kernel
+``odam_torch/csrc/lap.cu`` (one warp a problem), on the current stream and
+with no host read, so the exact decode stays on the card like every other
+op of the step.  The kernel computes JAX's solver step for step, with the
+same float32 arithmetic and tie-breaks; its plain version is the host solver
+:func:`_solve_square_leq`, which :func:`solve` runs for a CPU tensor (each
+call counted in ``PLAIN_CALLS``).  On a CUDA tensor the kernel runs, each
+launch counted in ``LAUNCHES``, or the call raises: there is no fallback.
+
+Around the solver, :func:`masked_assignment`, :func:`match_by_score` and
+:func:`linear_sum_assignment` are batched over leading axes and written as
+JAX writes them, with no host sync: the scale-aware pricing selects with
+``torch.where`` on ``any_valid``, R > C solves the transpose, and the decode
+scatters rejected rows into a dropped slot.  :func:`greedy_peel_match` is
+plain tensor code.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from . import build
+
 _BIG_COST = 1e6
+SOURCES = (build.PKG / "csrc" / "lap.cu",)
+SMEM_LIMIT = 232448            # dynamic shared memory a block may use on the H100
+
+# Launches of the CUDA kernel, and calls of its plain version that solve()
+# made for CPU tensors.
+LAUNCHES = {"lap_solve": 0}
+PLAIN_CALLS = {"lap_solve": 0}
+
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def reset_counts() -> None:
+    LAUNCHES["lap_solve"] = 0
+    PLAIN_CALLS["lap_solve"] = 0
+
+
+def load_library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build.build_library("odam_lap", SOURCES, BUILD_INFO)))
+        lib.odam_lap_solve.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                       + [ctypes.c_longlong, ctypes.c_void_p])
+        lib.odam_lap_solve.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(R: int, C: int) -> int:
+    """Shared memory of one problem's state in the kernel (lap.cu), rounded
+    up to 16 bytes as the launch rounds it."""
+    return (9 * R + 17 * C + 15) // 16 * 16
 
 
 def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
-    """Core solver; cost [R, C] on the CPU with R <= C -> col4row [R] int32."""
+    """The plain version: cost [R, C] on the CPU with R <= C -> col4row [R]
+    int32, JAX's ``_solve_square_leq`` step for step in float32."""
     c = np.ascontiguousarray(cost.detach().cpu().numpy(), dtype=np.float32)
     R, C = c.shape
     inf = np.float32(np.inf)
@@ -71,68 +118,123 @@ def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(col4row)
 
 
+def solve(cost: torch.Tensor) -> torch.Tensor:
+    """Exact assignment of every problem of a batch: cost [..., R, C] with
+    R <= C -> col4row [..., R] int32 (the column of each row).
+
+    A CUDA tensor goes to the kernel in one launch; a CPU tensor to the plain
+    version, one problem after the other."""
+    *lead, R, C = cost.shape
+    if R > C:
+        raise ValueError(f"solve takes R <= C, got [{R}, {C}]: solve the transpose")
+    cost = cost.float()
+    if cost.device.type == "cpu":
+        PLAIN_CALLS["lap_solve"] += 1
+        flat = cost.reshape(-1, R, C)
+        out = torch.stack([_solve_square_leq(c) for c in flat]) if len(flat) else \
+            torch.empty((0, R), dtype=torch.int32)
+        return out.reshape(*lead, R)
+    if cost.device.type != "cuda":
+        raise ValueError(f"solve: tensors on {cost.device} have no kernel")
+    if smem_bytes(R, C) > SMEM_LIMIT:
+        raise ValueError(f"solve: a [{R}, {C}] problem needs {smem_bytes(R, C)} bytes of shared "
+                         f"memory, above the {SMEM_LIMIT} a block may use")
+    flat = cost.reshape(-1, R, C).contiguous()
+    S = flat.shape[0]
+    if S > 2 ** 31 - 1:
+        raise ValueError(f"solve: {S} problems exceed the grid")
+    out = torch.empty((S, R), dtype=torch.int32, device=cost.device)
+    if S and R:
+        with torch.cuda.device(cost.device):
+            err = load_library().odam_lap_solve(
+                flat.data_ptr(), out.data_ptr(), S, R, C, R * C,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lap_solve kernel launch failed: cudaError {err}")
+        LAUNCHES["lap_solve"] += 1
+    return out.reshape(*lead, R)
+
+
+def linear_sum_assignment(cost: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Optimal assignment minimizing the total cost of [..., R, C].
+
+    Returns (row_ids [..., K], col_ids [..., K]) int64 with K = min(R, C),
+    rows ascending: scipy's contract, batched over leading axes."""
+    *lead, R, C = cost.shape
+    dev = cost.device
+    if R <= C:
+        col4row = solve(cost).long()
+        return torch.arange(R, device=dev).expand(*lead, R), col4row
+    row4col = solve(cost.transpose(-1, -2)).long()
+    order = torch.argsort(row4col, dim=-1)
+    return (torch.gather(row4col, -1, order),
+            torch.arange(C, device=dev).expand(*lead, C).gather(-1, order))
+
+
 def masked_assignment(cost: torch.Tensor, row_mask: torch.Tensor,
                       col_mask: torch.Tensor) -> torch.Tensor:
-    """Assignment over the valid submatrix of a padded CPU cost matrix.
+    """Assignment over the valid submatrix of padded cost matrices.
 
-    Invalid slots are priced at 128x the valid-cost span above the shifted
-    valid costs (scale-aware, as in the JAX package); an assignment that
-    touches an invalid slot is reported as unmatched.
+    ``cost`` [..., R, C], ``row_mask`` [..., R] and ``col_mask`` [..., C]
+    bool.  Invalid slots are priced at 128x the valid-cost span above the
+    shifted valid costs (scale-aware, as in the JAX package, whose docstring
+    says why a fixed large constant is wrong in float32); an assignment that
+    touches an invalid slot is reported as unmatched.  No host sync.
 
     Returns:
-        col4row [R] int32: assigned column per row, -1 where unmatched.
+        col4row [..., R] int32: assigned column per row, -1 where unmatched.
     """
-    R, C = cost.shape
-    cost = cost.float()
-    valid = row_mask[:, None] & col_mask[None, :]
-    cost = torch.clamp(cost, -_BIG_COST, _BIG_COST)
-    if bool(valid.any()):
-        lo = torch.where(valid, cost, torch.inf).min()
-        hi = torch.where(valid, cost, -torch.inf).max()
-    else:
-        lo = hi = torch.zeros((), dtype=torch.float32)
+    R, C = cost.shape[-2:]
+    cost = torch.clamp(cost.float(), -_BIG_COST, _BIG_COST)
+    valid = row_mask[..., :, None] & col_mask[..., None, :]
+    any_valid = valid.flatten(-2).any(-1)
+    zero = torch.zeros((), dtype=torch.float32, device=cost.device)
+    lo = torch.where(any_valid, torch.where(valid, cost, torch.inf).flatten(-2).amin(-1), zero)
+    hi = torch.where(any_valid, torch.where(valid, cost, -torch.inf).flatten(-2).amax(-1), zero)
     span = torch.clamp(hi - lo, min=1e-6)
-    big = span * 128.0
-    cost = torch.where(valid, cost - lo, big)
+    big = (span * 128.0)[..., None, None]
+    cost = torch.where(valid, cost - lo[..., None, None], big)
     if R <= C:
-        col4row = _solve_square_leq(cost)
+        col4row = solve(cost)
     else:
-        row4col = _solve_square_leq(cost.T).long()
-        col4row = torch.full((R,), -1, dtype=torch.int32)
-        col4row[row4col] = torch.arange(C, dtype=torch.int32)
+        row4col = solve(cost.transpose(-1, -2)).long()
+        cols = torch.arange(C, dtype=torch.int32, device=cost.device).expand_as(row4col)
+        col4row = torch.full(cost.shape[:-1], -1, dtype=torch.int32, device=cost.device)
+        col4row = col4row.scatter(-1, row4col, cols)
     safe = torch.clamp(col4row, 0, C - 1).long()
-    ok = (row_mask & (col4row >= 0) & col_mask[safe]
-          & (cost[torch.arange(R), safe] < big / 2))
+    ok = (row_mask & (col4row >= 0) & torch.gather(col_mask, -1, safe)
+          & (torch.gather(cost, -1, safe[..., None])[..., 0] < big[..., 0] / 2))
     return torch.where(ok, col4row, -1).int()
 
 
-def match_by_score(score: torch.Tensor, threshold: float,
+def match_by_score(score: torch.Tensor, threshold: float | torch.Tensor,
                    row_mask: torch.Tensor | None = None,
                    col_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Exact decode on the host: LAP on cost = 1 - score, keep matches whose
-    score exceeds ``threshold``.
+    """Exact decode: LAP on cost = 1 - score, keep matches whose score
+    exceeds ``threshold``.  Batched, on the score's device, no host sync.
 
     Args:
-        score: [M, N] (tracks x detections) CPU score matrix in [0, 1].
+        score: [..., M, N] (tracks x detections) score matrices in [0, 1];
+        row_mask [..., M], col_mask [..., N] bool (default all valid).
 
     Returns:
-        [N] int32 track index per detection, -1 if unmatched.
+        [..., N] int32 track index per detection, -1 if unmatched.
     """
-    M, N = score.shape
+    M, N = score.shape[-2:]
+    lead, dev = score.shape[:-2], score.device
     if row_mask is None:
-        row_mask = torch.ones(M, dtype=torch.bool)
+        row_mask = torch.ones(lead + (M,), dtype=torch.bool, device=dev)
     if col_mask is None:
-        col_mask = torch.ones(N, dtype=torch.bool)
-    col4row = masked_assignment(1.0 - score, row_mask, col_mask)
-    rows = torch.arange(M)
+        col_mask = torch.ones(lead + (N,), dtype=torch.bool, device=dev)
+    col4row = masked_assignment(1.0 - score, row_mask, col_mask)        # column per track
     safe = torch.clamp(col4row, 0, N - 1).long()
-    ok = (col4row >= 0) & (score[rows, safe] > threshold)
-    # scatter track ids into matched detection slots; rejected rows land on
-    # the extra slot N, which is dropped
+    ok = (col4row >= 0) & (torch.gather(score, -1, safe[..., None])[..., 0] > threshold)
+    # scatter track ids into their detection slots; rejected rows land on the
+    # extra slot N, which is dropped
     idx = torch.where(ok, col4row.long(), N)
-    out = torch.full((N + 1,), -1, dtype=torch.int32)
-    out[idx[ok]] = rows[ok].int()
-    return torch.where(col_mask, out[:N], -1).int()
+    rows = torch.arange(M, dtype=torch.int32, device=dev).expand(lead + (M,))
+    out = torch.full(lead + (N + 1,), -1, dtype=torch.int32, device=dev).scatter(-1, idx, rows)
+    return torch.where(col_mask, out[..., :N], -1).int()
 
 
 def greedy_peel_match(score: torch.Tensor, threshold: float,

@@ -54,3 +54,19 @@ def sq_surface_points(scales: torch.Tensor, epsilons: torch.Tensor, etas: torch.
     ny = (ce ** 2) * (so ** 2) / y
     nz = (se ** 2) / z
     return torch.stack([x, y, z], dim=-1), torch.stack([nx, ny, nz], dim=-1)
+
+
+def sq_inside_outside(pts: torch.Tensor, scales: torch.Tensor,
+                      epsilons: torch.Tensor) -> torch.Tensor:
+    """Inside-outside function of body-frame points [..., N, 3] against
+    superquadrics (scales, epsilons [..., 3] / [..., 2]):
+
+        F = (|x/a1|^(2/e2) + |y/a2|^(2/e2))^(e2/e1) + |z/a3|^(2/e1),
+
+    below 1 inside, 1 on the surface, above 1 outside."""
+    x = (pts[..., 0] / scales[..., 0:1]).abs()
+    y = (pts[..., 1] / scales[..., 1:2]).abs()
+    z = (pts[..., 2] / scales[..., 2:3]).abs()
+    e1, e2 = epsilons[..., 0:1], epsilons[..., 1:2]
+    xy = x.clamp(min=1e-9) ** (2.0 / e2) + y.clamp(min=1e-9) ** (2.0 / e2)
+    return xy.clamp(min=1e-12) ** (e2 / e1) + z.clamp(min=1e-9) ** (2.0 / e1)

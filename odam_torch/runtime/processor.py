@@ -13,18 +13,16 @@ the offline mode (:mod:`odam_torch.runtime.offline`) shares the tracking.
 :func:`lane_step_body` is the step of P scenes at once, stacked on a lane
 axis (:mod:`odam_torch.runtime.scene_parallel`).
 
-Two places differ from the JAX step, both on purpose:
-
-- The JAX step chooses between its init and association branches with a
-  ``lax.cond`` on ``store.count > 0``.  Here the host knows the answer: at
-  the end of a step ``count`` is copied without blocking into pinned memory
-  with an event, and read after the next frame's forward is queued.  Once
-  the store holds a track it never empties (association keeps matched
-  tracks and refills every slot it recycles), so the copy stops then.
-- The exact Hungarian decode runs on the host (:mod:`odam_torch.ops.lap`),
-  one blocking copy of the [T+1, N+1] log assignment per associated frame.
-
-``OdamPipeline.host_syncs`` counts the blocking waits of both kinds.
+One place differs from the JAX step, on purpose.  The JAX step chooses
+between its init and association branches with a ``lax.cond`` on
+``store.count > 0``.  Here the host knows the answer: at the end of a step
+``count`` is copied without blocking into pinned memory with an event, and
+read after the next frame's forward is queued.  Once the store holds a track
+it never empties (association keeps matched tracks and refills every slot it
+recycles), so the copy stops then.  ``OdamPipeline.host_syncs`` counts those
+waits, the step's only blocking reads: the exact Hungarian decode runs on
+the card in the LAP kernel (:mod:`odam_torch.ops.lap`), so a frame after the
+store holds a track waits for nothing.
 
 At scene end, ``optim_process`` packs the tracks into fixed-shape
 constraints on the host, solves all objects' superquadrics on the device
@@ -319,8 +317,8 @@ def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
 # functions are the one-scene functions under ``torch.func.vmap``, and
 # JAX's ``lax.cond`` on ``store.count > 0``, a select under ``vmap``, is a
 # select here too: both branches run for every lane.  So the lane step needs
-# no store-count flag, and with the exact decode its one blocking read a
-# frame is the associator's packed copy of every lane's assignment.
+# no store-count flag, and it makes no blocking read: the exact decode of
+# every lane is one launch of the LAP kernel.
 
 def detection_rows_camera_lanes(dets: detr_mod.Detections, frame_ids: torch.Tensor,
                                 img_w: float, img_h: float) -> torch.Tensor:
@@ -427,7 +425,7 @@ class OdamPipeline:
         self.associator = associator.to(self.device).eval()
         self.cfg = config
         self.sequence: dict | None = None
-        self.host_syncs = 0   # waits for the store-count flag
+        self.host_syncs = 0   # waits for the store-count flag: the step's only blocking reads
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
@@ -435,11 +433,6 @@ class OdamPipeline:
     def model_dtype(self) -> torch.dtype:
         """The detector's compute dtype: frames are decoded straight into it."""
         return self.detr.config.dtype if self.detr is not None else torch.float32
-
-    @property
-    def host_syncs_total(self) -> int:
-        """Every blocking device-to-host wait of the sequence's steps."""
-        return self.host_syncs + self.associator.host_syncs
 
     def init_sequence(self, K: np.ndarray, img_h: int, img_w: int) -> None:
         cfg, dev = self.cfg, self.device
@@ -516,7 +509,7 @@ class OdamPipeline:
         float32 [H, W, 3], or a YUV 4:2:0 tuple (Y [H, W], UV [H/2, W/2, 2])
         of uint8; with ``resize_on_device`` it may have any size.  Queues the
         step without waiting for it, apart from the waits counted in
-        ``host_syncs_total``."""
+        ``host_syncs``."""
         T_wc = self._record_frame(frame_id, T_wc)
         seq = self.sequence
         with torch.no_grad():

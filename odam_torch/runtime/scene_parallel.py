@@ -67,12 +67,6 @@ class SceneParallelRunner:
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
-    @property
-    def host_syncs_total(self) -> int:
-        """Blocking device-to-host waits of the steps so far: the exact
-        decode's one packed copy a step, whatever the number of lanes."""
-        return self.associator.host_syncs
-
     def step(self, stores: tracker.TrackStore, logs: tracker.FrameLog, images,
              meta: np.ndarray, Ks: torch.Tensor, img_h: float, img_w: float
              ) -> proc_mod.FrameResult:

@@ -278,10 +278,21 @@ def solve_inputs(size: str, device):
             t(np.broadcast_to(P, (O, V, 3, 4))), t(optimize_mask, torch.bool)), S
 
 
+def _reset_counts() -> None:
+    from ..ops import cuda_attention as ca
+    from ..ops import lap
+
+    ca.reset_counts()
+    lap.reset_counts()
+
+
 def _counts() -> dict:
     from ..ops import cuda_attention as ca
+    from ..ops import lap
 
     return {"launches": dict(ca.LAUNCHES), "plain_calls": dict(ca.PLAIN_CALLS),
+            "lap": {"launches": lap.LAUNCHES["lap_solve"],
+                    "plain_calls": lap.PLAIN_CALLS["lap_solve"]},
             "launches_by_batch": {k: {str(b): n for b, n in v.items()}
                                   for k, v in ca.LAUNCHES_BY_BATCH.items()}}
 
@@ -388,7 +399,6 @@ def _allreduce_ms(n: int, device, mesh, reps: int = 5) -> list[float]:
 
 
 def _stage_detect(size, device, mesh, report) -> dict:
-    from ..ops import cuda_attention as ca
     from ..runtime import offline
     from ..runtime import processor as proc_mod
 
@@ -401,7 +411,7 @@ def _stage_detect(size, device, mesh, report) -> dict:
     K = np.array([[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]], np.float32)
     det = offline.BatchedDetector(detr, proc_mod.PipelineConfig(detect_threshold=0.0),
                                   batch_size=B, mesh=mesh, device=device)
-    ca.reset_counts()
+    _reset_counts()
     dets = det.detect_frames(frames, K, float(w), float(h))
     _sync(device)
     report["detect"] = {"frames": len(frames), "batch": B, **_counts()}
@@ -444,7 +454,6 @@ def _stage_collectives(size, device, mesh, report) -> dict:
 
 
 def _stage_lanes(size, device, mesh, report) -> dict:
-    from ..ops import cuda_attention as ca
     from ..runtime import scene_parallel
 
     detr, assoc, cfg = lane_models(size, device)
@@ -452,13 +461,13 @@ def _stage_lanes(size, device, mesh, report) -> dict:
     scenes = lane_scenes(S["lane_lengths"], S["lane_image"])
     runner = scene_parallel.SceneParallelRunner(detr, assoc, cfg, S["n_lanes"], device=device,
                                                 mesh=mesh)
-    ca.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     outs = runner.run_scenes(scenes, *map(float, S["lane_image"]))
     _sync(device)
     report["lanes"] = {"seconds": time.perf_counter() - t0, "n_lanes": S["n_lanes"],
                        "lanes_this_rank": runner.lanes, "scene_lengths": list(S["lane_lengths"]),
-                       "host_syncs": runner.host_syncs_total, **_counts()}
+                       **_counts()}
     return flatten([{k: v for k, v in o.items() if k != "loss_log"} for o in outs])
 
 

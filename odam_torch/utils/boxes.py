@@ -1,8 +1,12 @@
 """Box helpers: the detector's postprocess and NMS, the training matcher's
-GIoU, and the min-area oriented box of the mapping stage.
+GIoU, axis-aligned and oriented 3D box IoU, and the min-area oriented box
+of the mapping stage.
 
-Counterpart of the ``odam_tpu/utils/boxes.py`` functions those stages need;
-the rest of that module waits.
+Counterpart of ``odam_tpu/utils/boxes.py``.  Every function is batched
+tensor code on the input's device with no host sync: the oriented 3D IoU
+clips the two top faces with four fixed-size Sutherland-Hodgman passes over
+a masked vertex buffer and takes the area with a masked shoelace, as JAX's
+does, here over leading axes instead of under ``vmap``.
 """
 from __future__ import annotations
 
@@ -66,6 +70,124 @@ def iou_aabb(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     vol_a = torch.prod(a[..., 1, :] - a[..., 0, :], dim=-1)
     vol_b = torch.prod(b[..., 1, :] - b[..., 0, :], dim=-1)
     return inter / (vol_a + vol_b - inter)
+
+
+def giou_aabb(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU of axis-aligned boxes [..., 2, D]."""
+    lo = torch.maximum(a[..., 0, :], b[..., 0, :])
+    hi = torch.minimum(a[..., 1, :], b[..., 1, :])
+    inter = torch.prod((hi - lo).clamp(min=0.0), dim=-1)
+    vol_a = torch.prod(a[..., 1, :] - a[..., 0, :], dim=-1)
+    vol_b = torch.prod(b[..., 1, :] - b[..., 0, :], dim=-1)
+    union = vol_a + vol_b - inter
+    hull = torch.prod(torch.maximum(a[..., 1, :], b[..., 1, :])
+                      - torch.minimum(a[..., 0, :], b[..., 0, :]), dim=-1)
+    return inter / union - (hull - union) / hull
+
+
+def aabb_from_points(pts: torch.Tensor) -> torch.Tensor:
+    """[..., N, 3] -> [..., 2, 3] ([min corner, max corner])."""
+    return torch.stack([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-2)
+
+
+MAX_CLIP_VERTS = 8
+
+
+def _take(verts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """verts [..., V, 2] at vertex indices idx [..., V]."""
+    return torch.gather(verts, -2, idx[..., None].expand(*idx.shape, 2))
+
+
+def _clip_by_edge(verts, count, cp1, cp2):
+    """One Sutherland-Hodgman pass: the masked polygons ``verts`` [..., V, 2]
+    (``count`` [...] valid) clipped by the half-plane left of cp1 -> cp2
+    [..., 2].  The inside test is inclusive, with a tolerance scaled by the
+    operands, as JAX's; the output keeps the fixed [..., V, 2] layout."""
+    V = verts.shape[-2]
+    idx = torch.arange(V, device=verts.device)
+    safe = count.clamp(min=1)[..., None]
+    e, s = verts, _take(verts, (idx - 1 + safe) % safe)
+    edge = cp2 - cp1
+
+    def inside(p):
+        rel = p - cp1[..., None, :]
+        cross = edge[..., None, 0] * rel[..., 1] - edge[..., None, 1] * rel[..., 0]
+        tol = 1e-6 * (torch.linalg.norm(edge, dim=-1)[..., None]
+                      * torch.linalg.norm(rel, dim=-1) + 1e-12)
+        return cross > -tol
+
+    in_e, in_s = inside(e), inside(s)
+    # the segment (s, e) against the clip edge's line
+    dc, dp = cp1 - cp2, s - e
+    n1 = (cp1[..., 0] * cp2[..., 1] - cp1[..., 1] * cp2[..., 0])[..., None]
+    n2 = s[..., 0] * e[..., 1] - s[..., 1] * e[..., 0]
+    denom = dc[..., None, 0] * dp[..., 1] - dc[..., None, 1] * dp[..., 0]
+    denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
+    inter = torch.stack([(n1 * dp[..., 0] - n2 * dc[..., None, 0]) / denom,
+                         (n1 * dp[..., 1] - n2 * dc[..., None, 1]) / denom], dim=-1)
+    active = idx < count[..., None]
+    # vertex i offers its crossing (slot 2i) then itself (slot 2i + 1), in order
+    cand = torch.stack([inter, e], dim=-2).reshape(*verts.shape[:-2], 2 * V, 2)
+    valid = torch.stack([active & (in_e != in_s), active & in_e], dim=-1).reshape(
+        *verts.shape[:-2], 2 * V)
+    to = torch.where(valid, torch.cumsum(valid, -1) - 1, 2 * V)      # 2V: dropped
+    out = verts.new_zeros(*verts.shape[:-2], 2 * V + 1, 2).scatter(
+        -2, to[..., None].expand(*to.shape, 2), cand)
+    return out[..., :V, :], valid.sum(-1)
+
+
+def _masked_shoelace(verts: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Area of masked polygons [..., V, 2] with ``count`` valid vertices."""
+    V = verts.shape[-2]
+    idx = torch.arange(V, device=verts.device)
+    nxt = _take(verts, (idx + 1) % count.clamp(min=1)[..., None])
+    cross = verts[..., 0] * nxt[..., 1] - nxt[..., 0] * verts[..., 1]
+    cross = torch.where(idx < count[..., None], cross, 0.0)
+    return 0.5 * cross.sum(-1).abs() * (count >= 3)
+
+
+def convex_quad_intersection_area(quad1: torch.Tensor, quad2: torch.Tensor) -> torch.Tensor:
+    """Intersection area of convex quadrilaterals [..., 4, 2] (CCW order)."""
+    lead = torch.broadcast_shapes(quad1.shape[:-2], quad2.shape[:-2])
+    quad1, quad2 = quad1.expand(*lead, 4, 2), quad2.expand(*lead, 4, 2)
+    verts = torch.cat([quad1, quad1.new_zeros(*lead, MAX_CLIP_VERTS - 4, 2)], dim=-2)
+    count = torch.full(lead, 4, dtype=torch.long, device=quad1.device)
+    for k in range(4):
+        verts, count = _clip_by_edge(verts, count, quad2[..., k - 1, :], quad2[..., k, :])
+    return _masked_shoelace(verts, count)
+
+
+def _quad_area(quad: torch.Tensor) -> torch.Tensor:
+    nxt = torch.roll(quad, -1, dims=-2)
+    return 0.5 * (quad[..., 0] * nxt[..., 1] - nxt[..., 0] * quad[..., 1]).sum(-1).abs()
+
+
+def box3d_vol(corners: torch.Tensor) -> torch.Tensor:
+    """Volume of oriented boxes from their 8 corners [..., 8, 3]."""
+    a = torch.linalg.norm(corners[..., 0, :] - corners[..., 1, :], dim=-1)
+    b = torch.linalg.norm(corners[..., 1, :] - corners[..., 2, :], dim=-1)
+    c = torch.linalg.norm(corners[..., 0, :] - corners[..., 4, :], dim=-1)
+    return a * b * c
+
+
+def box3d_iou(corners1: torch.Tensor, corners2: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oriented (z-aligned) 3D box IoU of 8-corner arrays [..., 8, 3] (top
+    face first, as ``geometry.corners_from_dims``) -> (iou_3d, iou_bev)."""
+    rect1 = corners1[..., [3, 2, 1, 0], :2]     # the top face reversed: counter-clockwise
+    rect2 = corners2[..., [3, 2, 1, 0], :2]
+    inter_area = convex_quad_intersection_area(rect1, rect2)
+    iou_2d = inter_area / (_quad_area(rect1) + _quad_area(rect2) - inter_area)
+    zmax = torch.minimum(corners1[..., 0, 2], corners2[..., 0, 2])
+    zmin = torch.maximum(corners1[..., 4, 2], corners2[..., 4, 2])
+    inter_vol = inter_area * (zmax - zmin).clamp(min=0.0)
+    iou = inter_vol / (box3d_vol(corners1) + box3d_vol(corners2) - inter_vol)
+    return iou, iou_2d
+
+
+def pairwise_box3d_iou(corners1: torch.Tensor, corners2: torch.Tensor) -> torch.Tensor:
+    """Pairwise oriented 3D IoU: [N, 8, 3] x [M, 8, 3] -> [N, M]."""
+    return box3d_iou(corners1[:, None], corners2[None, :])[0]
 
 
 def xyxy_scale(img_w: float, img_h: float, device) -> torch.Tensor:

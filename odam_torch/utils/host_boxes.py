@@ -1,8 +1,11 @@
-"""Host-side (NumPy) exact oriented-box IoU for the evaluation protocol and
-the merge: the convex-hull-based ``box3d_iou`` of the reference
-(box_utils.py:97-120), copied from ``odam_tpu/utils/host_boxes.py``, with a
-pure-NumPy monotone chain for the hull; and ``robust_box3d_iou``, the same
-IoU with a clip that stays well-defined for boxes that nearly coincide.
+"""Host-side (NumPy) exact oriented boxes for the evaluation protocol and
+the merge, copied from ``odam_tpu/utils/host_boxes.py``: the min-area
+rectangle on the convex hull's edge angles (``min_area_rect``,
+``oriented_bbox_3d``, ``bbox_and_orientation``; reference box_utils.py:
+169-283, 319-410), the convex-hull-based ``box3d_iou`` (box_utils.py:
+97-120), with a pure-NumPy monotone chain for the hull; and
+``robust_box3d_iou``, the same IoU with a clip that stays well-defined for
+boxes that nearly coincide.
 """
 from __future__ import annotations
 
@@ -36,6 +39,77 @@ def convex_hull_2d(pts: np.ndarray) -> np.ndarray:
     lower = half(pts)
     upper = half(pts[::-1])
     return np.asarray(lower[:-1] + upper[:-1])
+
+
+def min_area_rect(pts_xy: np.ndarray) -> tuple[np.ndarray, float]:
+    """Exact min-area oriented rectangle via hull-edge angles.
+
+    Mirrors the reference algorithm (box_utils.py:169-255): center the hull,
+    reduce edge angles mod pi/2, test each candidate, reconstruct corners with
+    the row-vector convention ``corner = [x, y] @ R``.
+
+    Returns:
+        (corners [4, 2], angle).
+    """
+    hull = convex_hull_2d(np.asarray(pts_xy, dtype=np.float64))
+    mean = hull.mean(axis=0)
+    h = hull - mean
+
+    # All hull edges including the closing one (the reference drops the
+    # closing edge, box_utils.py:187-191 — an off-by-one this fixes).
+    edges = np.diff(np.vstack([h, h[:1]]), axis=0)
+    if len(h) < 2:
+        corners = np.tile(mean, (4, 1))
+        return corners, 0.0
+    angles = np.abs(np.mod(np.arctan2(edges[:, 1], edges[:, 0]), np.pi / 2))
+    angles = np.unique(angles)
+
+    best = None
+    for ang in angles:
+        c, s = np.cos(ang), np.sin(ang)
+        # Reference rotation convention (box_utils.py:212-217): R rotates by
+        # -ang, aligning a hull edge at angle ``ang`` with the x-axis.
+        R = np.array([[c, s], [-s, c]])
+        rot = R @ h.T
+        x_min, x_max = rot[0].min(), rot[0].max()
+        y_min, y_max = rot[1].min(), rot[1].max()
+        area = (x_max - x_min) * (y_max - y_min)
+        if best is None or area < best[0]:
+            best = (area, ang, x_min, x_max, y_min, y_max)
+
+    _, ang, x_min, x_max, y_min, y_max = best
+    c, s = np.cos(ang), np.sin(ang)
+    R = np.array([[c, s], [-s, c]])
+    rect = np.array(
+        [[x_max, y_max], [x_max, y_min], [x_min, y_min], [x_min, y_max]]
+    )
+    corners = rect @ R + mean  # row-vector form: the inverse (+ang) rotation
+    return corners, float(ang)
+
+
+def oriented_bbox_3d(pts: np.ndarray) -> np.ndarray:
+    """Exact oriented 3D box (z-up) from points: [N, 3] -> [8, 3] corners.
+
+    Top face (z_max) first — reference: box_utils.py:319-410 (compute_oriented_bbox).
+    """
+    pts = np.asarray(pts, dtype=np.float64)
+    z_min, z_max = pts[:, 2].min(), pts[:, 2].max()
+    corners_2d, _ = min_area_rect(pts[:, :2])
+    top = np.concatenate([corners_2d, np.full((4, 1), z_max)], axis=1)
+    bot = np.concatenate([corners_2d, np.full((4, 1), z_min)], axis=1)
+    return np.concatenate([top, bot], axis=0)
+
+
+def bbox_and_orientation(vertices: np.ndarray) -> tuple[np.ndarray, float]:
+    """Oriented 3D box + long-axis orientation (reference: box_utils.py:258-283)."""
+    corners = oriented_bbox_3d(vertices)
+    bbox_2d = corners[:4, :2]
+    axis1 = np.linalg.norm(bbox_2d[0] - bbox_2d[1])
+    axis2 = np.linalg.norm(bbox_2d[0] - bbox_2d[3])
+    long_axis = bbox_2d[0] - (bbox_2d[1] if axis1 > axis2 else bbox_2d[3])
+    long_axis = long_axis / np.linalg.norm(long_axis)
+    theta = float(np.arccos(np.clip(long_axis @ np.array([1.0, 0.0]), -1.0, 1.0)))
+    return corners, theta
 
 
 def polygon_area(poly: np.ndarray) -> float:

@@ -169,8 +169,12 @@ def test_config_and_model_configs_match(path):
                                  use_pallas=kernels)
         for f in ta.__dataclass_fields__:
             assert same(getattr(ta, f), getattr(ja, jax_name.get(f, f)), f), f
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        t_detr.DETRConfig.from_cfg({**tc, "pre_norm": True})
+    # the options the port once refused now read as JAX reads them
+    opts = {"pre_norm": True, "dilation": True, "position_embedding": "learned", "stem": "s2d"}
+    td = t_detr.DETRConfig.from_cfg({**tc, **opts}, use_kernels=False)
+    jd = j_detr.DETRConfig.from_cfg({**jc, **opts}, use_pallas=False)
+    for f in td.__dataclass_fields__:
+        assert same(getattr(td, f), getattr(jd, jax_name.get(f, f)), f), f
 
 
 # ---------------------------------------------------------- geometry, boxes

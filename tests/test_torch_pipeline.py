@@ -179,7 +179,7 @@ def test_whole_step_matches_over_six_frames():
     _assert_store_equal(tpipe.sequence["store"], jpipe.sequence["store"], atol=1e-4)
     _assert_tracks_equal(jpipe, tpipe, atol=1e-4)
     assert tpipe.overflow_report() == jpipe.overflow_report()
-    assert tpipe.host_syncs_total == 0      # the CPU run waits on nothing
+    assert tpipe.host_syncs == 0      # the CPU run waits on nothing
 
 
 def _scene_frames(n):

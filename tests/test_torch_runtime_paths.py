@@ -160,7 +160,7 @@ def test_offline_tracks_equal_online_and_jax():
     assert list(ot) == list(on) and len(ot) > 0
     for tid in on:
         np.testing.assert_allclose(ot[tid], on[tid], atol=1e-4)
-    assert tc.host_syncs_total == 0
+    assert tc.host_syncs == 0
     with pytest.raises(NotImplementedError, match="process_detections"):
         tc.process_frame(frames[0], 0, _pose(0))
 

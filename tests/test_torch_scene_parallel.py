@@ -261,7 +261,9 @@ def test_runner_equals_serial_pipeline_on_rehearsal_scenes():
                                 optim_samples=100, max_log_frames=8)
     scenes = [_hard_scene(s, n) for s, n in zip(HARD_SCENES, (4, 2, 3))]
     runner = t_sp.SceneParallelRunner(detr, assoc, cfg, 4, device="cpu")
+    lap_calls = t_lap.PLAIN_CALLS["lap_solve"]
     stores, logs = runner.run_frames(scenes, 192.0, 192.0)
+    lap_calls = t_lap.PLAIN_CALLS["lap_solve"] - lap_calls
     outs = runner.finalize(scenes, stores, logs, 192.0, 192.0)
     pipe = t_proc.OdamPipeline(detr, assoc, cfg, device="cpu")
     for lane, s in enumerate(scenes):
@@ -286,7 +288,7 @@ def test_runner_equals_serial_pipeline_on_rehearsal_scenes():
         assert outs[lane]["overflow_report"] == pipe.overflow_report()
     # the padded lane logged nothing; every real lane logged its frames
     assert logs.count.tolist() == [4, 2, 3, 0]
-    assert runner.host_syncs_total == 0            # the CPU run waits on nothing
+    assert lap_calls == 4          # one exact decode of every lane a step, 4 steps
 
 
 # ---------------------------------------------------- runner against JAX's
