@@ -19,7 +19,9 @@ Phases, each printed as one JSON line on stdout:
    yardstick only) times: device time per call from a CUDA graph of 20
    calls, replayed, and the back-to-back issue time of the same calls; the
    offline detector's batch-8 shapes too, which the routing sends to the
-   plain path (so their times show what that routing costs);
+   plain path (so their times show what that routing costs), and
+   ``bench_attention``'s shapes (fused at 400 and 1050 keys, in 256-key
+   slabs; flash at all three);
    lap: the LAP kernel (odam_torch/csrc/lap.cu) against its plain version,
    the host solver, at the decode's shapes (B = 1 and 8), the matcher's 48
    problems, tie-heavy integer costs, all-masked problems and 256 x 256:
@@ -109,10 +111,20 @@ Phases, each printed as one JSON line on stdout:
     associator, P / R / F1 card = CPU;
 21. mapping_tools: ``run_multi_view`` (200 iterations) and ``run_merge`` on
     tracking_rehearsal's tracks; 5 iterations card against CPU (bboxes_dl
-    within 1e-3, bboxes_qc IoU >= 0.95, merged tracks equal).
+    within 1e-3, bboxes_qc IoU >= 0.95, merged tracks equal);
+22. tools: the eight tooling scripts of ``odam_torch/scripts`` (the
+    attention bench, the pipeline and batched-detector profiles, the
+    transport A/B, the lanes and batched-detection benches, the LM envelope
+    sweep, the crash-recovery demo) in-process through ``main(argv)`` at
+    cut depths (``TOOL_ARGS``), each tool's launches by kernel and dtype
+    counted; the kernel errors, fused at 1050 and 400 keys, every MFU below
+    100%, prefix times rising with the stage, equal track ids across the
+    transports, kernel events in the trace, the sweep's card rows against
+    the CPU's and the crash demo's resumed loss all checked.
 
 Then the kernel table (the LAP kernel's rows too) with the launch counts of
-every path, the card's name and power limit as nvidia-smi prints them,
+every path (each row's time above its bound), the card's name and power
+limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
 JAX.
 """
@@ -158,7 +170,13 @@ TPU_KERNEL = {"fused_attention": "odam_tpu/ops/pallas_attention.py:76",
 SOURCE = "odam_torch/csrc/attention.cu"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -426,6 +444,17 @@ KERNEL_CASES = [
           all_masked_row=True, label="ragged Lk, all-masked batch row, dh=16"),
     # scene_parallel_full: the lane step at P = 2, 4, 8 (P = 1 is the slice's)
     *_lane_cases(),
+    # bench_attention's shapes (odam_torch/scripts/bench_attention.py: CASES,
+    # 7 padded keys at the tail): fused at 1050 and 400 keys, past one
+    # 256-key slab, and flash at all three
+    *[_case(name, B, Lq, Lk, H, dh, dtype, masked_tail=7, label=f"bench_attention: {case}",
+            path="bench_attention")
+      for dtype in (torch.float32, torch.bfloat16)
+      for case, B, Lq, Lk, H, dh in (("encoder_1050tok", 1, 1050, 1050, 8, 32),
+                                     ("fuser_w100_48trk", 48, 100, 100, 4, 64),
+                                     ("fuser_w400_48trk", 48, 400, 400, 4, 64))
+      for name in ("fused_attention", "flash_attention")
+      if name == "flash_attention" or Lk >= 256],
 ]
 
 
@@ -2476,6 +2505,7 @@ def _dist_rank(report: dict, on_card: bool) -> dict:
     """One rank's numbers of a dryrun_distributed job."""
     lanes = report["lanes"]
     ar = report["detr_train"].get("allreduce_ms")
+    kind = "launches" if on_card else "plain_calls"
     return {"rank": report.get("rank", 0), "seconds": report["seconds"],
             "train_step_ms": {"detr": report["detr_train"]["step_ms"],
                               "assoc": report["assoc_train"]["step_ms"]},
@@ -2484,7 +2514,7 @@ def _dist_rank(report: dict, on_card: bool) -> dict:
             "grad_allreduce_floats": report["detr_train"]["trained_floats"],
             "peak_bytes_by_stage": report["peak_bytes"],
             "lanes_this_rank": lanes["lanes_this_rank"],
-            "launches_by_stage": {k: report[k]["launches" if on_card else "plain_calls"]
+            "launches_by_stage": {k: {**report[k][kind], "lap_solve": report[k]["lap"][kind]}
                                   for k in ("detect", "lanes")},
             "lanes_launches_by_batch": lanes["launches_by_batch"],
             "lane_rate": report.get("lane_rate")}
@@ -2528,8 +2558,9 @@ def dist_runs(out_root: str = os.path.join("runs", "dist"), device: str = "cuda"
         per_rank = [_dist_rank(rep, on_card) for _, rep in ranks]
         for r, rank in enumerate(per_rank):
             lanes = rank["launches_by_stage"]["lanes"]
+            attention = [lanes[k] for k in ("flash_attention", "fused_attention")]
             # the tiny CPU rehearsal's images are too small for the flash kernel
-            if any(n == 0 for n in (lanes.values() if on_card else [sum(lanes.values())])):
+            if any(n == 0 for n in (attention if on_card else [sum(attention)])):
                 raise AssertionError(f"{phase} rank {r}: a kernel was never launched on its "
                                      f"lanes: {lanes}")
             batches = {b for by in rank["lanes_launches_by_batch"].values() for b in by}
@@ -2905,6 +2936,215 @@ def mapping_tools_run(tracks_pickle: str,
             "merged_card_equals_cpu": True}
 
 
+# -------------------------------------------------------------------- tools
+
+TOOLS_DIR = os.path.join("runs", "tools")    # traces and the crash demo's runs
+# the cut depths of the tools phase (each tool's own defaults otherwise:
+# 800x1071, bf16, full-width seeded models)
+TOOL_ARGS = {
+    "bench_attention": ["--iters", "10"],                # f32, then bf16
+    "profile_pipeline": ["--iters", "10", "--frames", "30"],
+    "ab_step_input": ["--frames", "20"],
+    "bench_scene_parallel": ["--lanes", "1", "8", "--passes", "2"],
+    "bench_batched_detection": ["--batches", "1,4,8,16", "--iters", "8"],
+    "profile_batched_detector": ["--batch", "16", "--passes", "3", "--reps", "5",
+                                 "--per_stage"],
+    "lm_envelope_sweep": [],                             # its defaults
+    # the rehearsal config at 192x192, batch 8, f32 (the tool's defaults)
+    "crash_recovery_demo": ["--steps", "24", "--bank", "6"],
+}
+TOOL_ENV = {"ab_step_input": {"ODAM_AB_PASSES": "2"},
+            "bench_scene_parallel": {"ODAM_BENCH_FRAMES": "8"}}
+SWEEP_CHECK = ["--views", "8", "--samples", "32", "--lm_iters", "3", "--adam_iters", "5"]
+# card against CPU, a cell's LM and Adam IoU at SWEEP_CHECK: f32 solves in
+# another order (tests/test_torch_tools.py holds the CPU to JAX within 2e-3)
+SWEEP_IOU_ATOL = 1e-2
+CRASH_TOL = 1e-3          # resumed against uninterrupted final loss, relative
+CRASH_SAVE_DELAY_S = 0.5
+
+
+def slow_save_site(site_dir: str, seconds: float) -> str:
+    """Write ``site_dir/sitecustomize.py``, which makes every checkpoint write
+    of ``odam_torch`` sleep ``seconds`` once its ``.tmp`` directory exists
+    (before ``params.npz``), and return ``site_dir``.  On a trainer's
+    ``PYTHONPATH`` it holds each save open, so that crash_recovery_demo's
+    kill lands inside one in every run.  It first runs the sitecustomize it
+    shadows, if the interpreter has one."""
+    os.makedirs(site_dir, exist_ok=True)
+    with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+        f.write(f"""import os, runpy, sys, time
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _f = os.path.join(_p or ".", "sitecustomize.py")
+    if os.path.abspath(_p or ".") != _here and os.path.isfile(_f):
+        runpy.run_path(_f)
+        break
+from odam_torch.models import convert as _convert
+_save = _convert.save_flax_npz
+
+
+def _slow_save(*args, **kwargs):
+    time.sleep({seconds!r})
+    return _save(*args, **kwargs)
+
+
+_convert.save_flax_npz = _slow_save
+""")
+    return site_dir
+
+
+def _kernel_events(trace_dir: str) -> int:
+    """CUDA kernel events in the newest Chrome trace under ``trace_dir``."""
+    newest = max((os.path.join(trace_dir, f) for f in os.listdir(trace_dir)),
+                 key=os.path.getmtime)
+    with open(newest) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def _with_env(env: dict, fn):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tools_run(device: str = "cuda", out_root: str = TOOLS_DIR) -> tuple[dict, dict, dict]:
+    """The eight tools of ``odam_torch/scripts`` in-process through their
+    ``main(argv)`` with TOOL_ARGS (cut depths; each tool's defaults
+    otherwise: 800x1071, bf16, full-width seeded models) and TOOL_ENV, each
+    tool's launches by kernel and dtype
+    counted.  Holds: every kernel error within its bar, fused launched at
+    1050 and 400 keys, every MFU below 100%, the per-stage prefix times
+    increasing with k, ab_step_input's forms equal in track ids, the trace
+    holding CUDA kernel events, the crash demo within CRASH_TOL after a kill
+    that landed mid-save, the sweep's card rows within SWEEP_IOU_ATOL of the
+    CPU's.  Returns (report, launches by path, bench_attention's rows)."""
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.scripts import (ab_step_input, bench_attention, bench_batched_detection,
+                                    bench_scene_parallel, crash_recovery_demo,
+                                    lm_envelope_sweep, profile_batched_detector,
+                                    profile_pipeline)
+    from odam_torch.utils.metrics import device_banner
+
+    dev = ["--device", device]
+    report = {"phase": "tools", "device": device_banner(torch.device(device)),
+              "args": TOOL_ARGS, "env": TOOL_ENV, "tools": {}}
+    paths = {}
+
+    def run(name, fn):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        paths[f"tools:{name}"] = _launches(device == "cuda")
+        report["tools"][name] = {
+            "seconds": time.perf_counter() - t0, "launches": paths[f"tools:{name}"],
+            "launches_by_dtype": {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()},
+            "launches_by_batch": {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}}
+        return out
+
+    # 1. bench_attention, f32 then bf16: errors against the f32 plain result
+    attn_rows = run("bench_attention", lambda: [
+        row for dtype in ("float32", "bfloat16")
+        for row in bench_attention.main(dev + TOOL_ARGS["bench_attention"] +
+                                        ["--dtype", dtype])])
+    for row in attn_rows:
+        for col in ("fused", "flash"):
+            bar = (F32_ATOL[f"{col}_attention"] if row["dtype"] == "float32"
+                   else BF16_ROUNDINGS * 2.0 ** -8 * row["ref_max_abs"])
+            if not row[f"err_{col}"] <= bar:
+                raise AssertionError(f"bench_attention {row['case']} {row['dtype']} {col}: "
+                                     f"error {row[f'err_{col}']:.3e} above {bar:.3e}")
+        if device == "cuda" and row["shape"]["Lk"] >= 256 and not row["fused_launches"]:
+            raise AssertionError(f"bench_attention {row['case']}: fused_attention not launched")
+    report["tools"]["bench_attention"]["rows"] = attn_rows
+
+    # 2. profile_pipeline with a trace
+    trace_dir = os.path.join(out_root, "profile_pipeline_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    pp = run("profile_pipeline", lambda: profile_pipeline.main(
+        dev + TOOL_ARGS["profile_pipeline"] + ["--trace", trace_dir]))
+    kernels = _kernel_events(trace_dir)
+    if device == "cuda" and not kernels:
+        raise AssertionError("profile_pipeline: the trace holds no CUDA kernel event")
+    report["tools"]["profile_pipeline"].update(stages_ms=pp["stages_ms"],
+                                               trace_kernel_events=kernels)
+
+    # 3. ab_step_input: the three forms give the same track ids
+    ab = run("ab_step_input", lambda: _with_env(TOOL_ENV["ab_step_input"], lambda: (
+        ab_step_input.main(dev + TOOL_ARGS["ab_step_input"]))))
+    if not all(ab["ids_equal_float32"].values()):
+        raise AssertionError(f"ab_step_input: track ids differ by form {ab['ids_equal_float32']}")
+    report["tools"]["ab_step_input"].update(fps=ab["fps"], ids_equal=ab["ids_equal_float32"])
+
+    # 4. bench_scene_parallel: both kernels at B = 8
+    sp = run("bench_scene_parallel", lambda: _with_env(
+        TOOL_ENV["bench_scene_parallel"],
+        lambda: bench_scene_parallel.main(dev + TOOL_ARGS["bench_scene_parallel"])))
+    by_batch = report["tools"]["bench_scene_parallel"]["launches_by_batch"]
+    if device == "cuda" and not all(by_batch[k].get(8) for k in by_batch):
+        raise AssertionError(f"bench_scene_parallel: a kernel not launched at B = 8: {by_batch}")
+    report["tools"]["bench_scene_parallel"]["fps"] = sp["fps"]
+
+    # 5. bench_batched_detection: MFU below 100%; the kernels at batch 1 only
+    bbd = run("bench_batched_detection", lambda: bench_batched_detection.main(
+        dev + TOOL_ARGS["bench_batched_detection"]))
+    by_batch = report["tools"]["bench_batched_detection"]["launches_by_batch"]
+    if device == "cuda" and any(set(v) != {1} for v in by_batch.values()):
+        raise AssertionError(f"bench_batched_detection: kernel launches by batch {by_batch}")
+    mfus = [r["mfu"] for r in bbd["rows"] if r["mfu"] is not None]
+    if not all(0 < m < 1 for m in mfus):
+        raise AssertionError(f"bench_batched_detection: MFU {mfus}")
+    report["tools"]["bench_batched_detection"].update(
+        {k: bbd[k] for k in ("peak_tflops", "gflop_per_frame", "rows")})
+
+    # 6. profile_batched_detector: MFU below 100%, prefixes increasing
+    pbd = run("profile_batched_detector", lambda: profile_batched_detector.main(
+        dev + TOOL_ARGS["profile_batched_detector"]))
+    for B, r in pbd["batches"].items():
+        shares = [v["mfu"] for v in (*r["stages"].values(), *r["per_stage"].values())
+                  if v["mfu"] is not None] + [r["whole_program_mfu"] or 0.0]
+        if not all(m < 100 for m in shares):
+            raise AssertionError(f"profile_batched_detector B={B}: an MFU at or above 100%")
+        pre = [r["prefix_ms"][k] for k in sorted(r["prefix_ms"])]
+        if pre != sorted(pre) or len(set(pre)) != len(pre):
+            raise AssertionError(f"profile_batched_detector B={B}: prefix ms {pre} not "
+                                 "increasing with k")
+    report["tools"]["profile_batched_detector"]["batches"] = pbd["batches"]
+
+    # 7. lm_envelope_sweep: defaults on the card, then card against CPU
+    run("lm_envelope_sweep",
+        lambda: lm_envelope_sweep.main(dev + TOOL_ARGS["lm_envelope_sweep"]))
+    card, _, card_corners = lm_envelope_sweep.main(dev + SWEEP_CHECK)
+    cpu, _, cpu_corners = lm_envelope_sweep.main(["--device", "cpu"] + SWEEP_CHECK)
+    diff = float(np.abs(np.array([r[3:5] for r in card]) - np.array([r[3:5] for r in cpu])).max())
+    if not diff <= SWEEP_IOU_ATOL:
+        raise AssertionError(f"lm_envelope_sweep: card vs CPU IoU {diff:.3e} above "
+                             f"{SWEEP_IOU_ATOL}")
+    report["tools"]["lm_envelope_sweep"].update(
+        check=SWEEP_CHECK, max_iou_diff_card_vs_cpu=diff, iou_atol=SWEEP_IOU_ATOL,
+        corners_equal=card_corners == cpu_corners)
+
+    # 8. crash_recovery_demo: trainer processes with their saves slowed
+    site = slow_save_site(os.path.join(out_root, "slow_save_site"), CRASH_SAVE_DELAY_S)
+    env = {"PYTHONPATH": site + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    crash = run("crash_recovery_demo", lambda: _with_env(env, lambda: crash_recovery_demo.main(
+        dev + TOOL_ARGS["crash_recovery_demo"] + [
+            "--tol", str(CRASH_TOL), "--workdir", os.path.join(out_root, "crash")])))
+    if not (crash["killed_mid_save"] and crash["within_tolerance"]):
+        raise AssertionError(f"crash_recovery_demo: {crash}")
+    report["tools"]["crash_recovery_demo"].update(
+        result=crash, tol=CRASH_TOL, launches="in the trainer's processes: not counted here")
+    del paths["tools:crash_recovery_demo"]
+    return report, paths, attn_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3000,13 +3240,29 @@ def main() -> int:
     if paths["eval_association"]["fused_attention"] == 0:
         raise AssertionError("fused_attention was never launched on the eval_association path")
     emit(mapping_tools_run(tracks_pickle))
+    tools_report, tools_paths, attn_rows = tools_run()
+    emit(tools_report)
+    paths.update(tools_paths)
+    for tool in ("profile_pipeline", "ab_step_input", "bench_scene_parallel",
+                 "bench_batched_detection"):
+        for name in ("flash_attention", "fused_attention"):
+            if paths[f"tools:{tool}"][name] == 0:
+                raise AssertionError(f"{name} was never launched by {tool}")
     for path in ("offline", "scene_parallel_full", "scene_parallel_full_bf16", "scene",
                  "scene_parallel_hard", "cli_scene_parallel", "cli_full", "cli_offline",
                  "train_detector", "eval_association"):     # cli_fast decodes greedily
         if not paths[path].get("lap_solve"):
             raise AssertionError(f"lap_solve was never launched on the {path} path")
+    tool_launches = {(r["case"], r["dtype"], f"{col}_attention"): r[f"{col}_launches"]
+                     for r in attn_rows for col in ("fused", "flash")}
     for row in kernel_rows:
-        if row["path"] == "lanes":      # the lane step's launches at this B
+        if not row["ms"] > row["bound_ms"]:
+            raise AssertionError(f"{row['name']} {row.get('case')}: {row['ms']} ms at or "
+                                 f"below its bound {row['bound_ms']} ms")
+        if row["path"] == "bench_attention":      # bench_attention's launches at this case
+            row["launches"] = tool_launches[(row["case"].split(": ")[1], row["dtype"],
+                                             row["name"])]
+        elif row["path"] == "lanes":      # the lane step's launches at this B
             row["launches"] = sp_full_report["launches_by_batch"][row["dtype"]][row["name"]].get(
                 row["shape"]["B"], 0)
         else:

@@ -43,11 +43,18 @@
 //   with cp.async (16-byte copies, the ragged edge zero-filled) into a
 //   double-buffered ring of its own, so the next tile loads while the
 //   current one is computed and the warps sync only among their own lanes.
-// - fused (Lk < 256): the block stages the whole (b, h) K/V slice once with
-//   cp.async; warp w takes a contiguous eighth of its 16-key groups,
-//   computes those logits once and keeps them in registers (at most 32 keys,
-//   16 floats a thread), then takes the row max, exp, sum and P.V: one pass,
-//   no second Q.K^T.  It is the one-stage case of flash's tile routine.
+// - fused: the block stages the (b, h) K/V slice with cp.async in slabs of
+//   256 keys, the whole slice in one slab when Lk < 256; in each slab warp w
+//   takes a contiguous eighth of its 16-key groups, computes those logits
+//   once and keeps them in registers (at most 32 keys, 16 floats a thread),
+//   then takes the row max, exp, sum and P.V: one pass, no second Q.K^T.  It
+//   is the one-stage case of flash's tile routine, and a warp carries its
+//   online-softmax state from one slab to the next.  The TPU kernel holds a
+//   slice of any Lk in VMEM; here a slice of 1050 keys in f32 at dh 32
+//   would take 304 KB of shared memory against a block's 227 KB, hence the
+//   slabs (at most 139 KB, f32 at dh 64).  A slab is staged after every
+//   warp is done with the one before: no overlap of copy and compute past
+//   256 keys, where flash is the streaming kernel.
 //
 // What bounds them, and why mma.sync and not wgmma/TMA: at the main path's
 // shapes (dh 32 or 64, Lk <= 850, B = 1) the work is a few MFLOP to 0.74
@@ -76,8 +83,8 @@ constexpr int kRows = 16;                    // query rows per block: one mma ti
 constexpr int kTileK = 16;                   // keys per flash tile
 constexpr int kStages = 2;                   // flash: tiles in flight per warp
 constexpr int kGroup = 16;                   // fused: keys per group a warp takes
-constexpr int kMaxFusedKeys = 256;           // fused holds all Lk < 256 keys
-constexpr int kFusedWarpKeys = kMaxFusedKeys / kWarps;   // 32: most keys a warp holds
+constexpr int kFusedSlab = 256;              // fused: keys staged at once
+constexpr int kFusedWarpKeys = kFusedSlab / kWarps;   // 32: most keys a warp holds
 constexpr float kMasked = -1e9f;             // logit of a padded key
 constexpr int kMaxDevices = 64;
 
@@ -508,9 +515,10 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                      st.ol, nrows);
 }
 
-// Single-stage attention for Lk < 256: the block stages every key of the
-// (b, h) slice once; warp w takes a contiguous eighth of the 16-key groups
-// and attends to them in one pass with its logits in registers.
+// Single-stage attention: the block stages the keys of the (b, h) slice in
+// slabs of kFusedSlab (one slab when Lk < 256); in each slab warp w takes a
+// contiguous eighth of the 16-key groups and attends to them in one pass
+// with its logits in registers, its softmax state carried across slabs.
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 fused_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -523,12 +531,15 @@ fused_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int h = blockIdx.y - b * H;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, Lq - row0);
-  const int n_groups = (Lk + kGroup - 1) / kGroup;
+  const int slab_groups = (min(Lk, kFusedSlab) + kGroup - 1) / kGroup;
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + n_groups * kGroup * P;
+  T* vs = ks + slab_groups * kGroup * P;
 
   const T* kbase = k + (long long)b * st.kb + (long long)h * st.kh;
   const T* vbase = v + (long long)b * st.vb + (long long)h * st.vh;
+  const uint8_t* mrow = mask != nullptr ? mask + (long long)b * st.mb : nullptr;
+  int key0 = 0;
+  int n_groups = slab_groups;
   stage_rows<T, DH>(kbase, st.kl, 0, n_groups * kGroup, Lk, ks, threadIdx.x, kThreads);
   stage_rows<T, DH>(vbase, st.vl, 0, n_groups * kGroup, Lk, vs, threadIdx.x, kThreads);
   cp_async_commit();
@@ -538,16 +549,25 @@ fused_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
              nrows, f);
   RowState<DH> rs;
   init_state<DH>(rs);
-  const int per_warp = (n_groups + kWarps - 1) / kWarps;
-  const int g0 = warp * per_warp;
-  const int gn = min(per_warp, n_groups - g0);
-  const uint32_t padded = padded_keys<kFusedWarpKeys / 8>(
-      mask != nullptr ? mask + (long long)b * st.mb : nullptr, g0 * kGroup, gn * kGroup / 8, Lk);
-  cp_async_wait<0>();
-  __syncthreads();
-  if (gn > 0) {
-    attend<T, DH, kFusedWarpKeys / 8>(f, ks + g0 * kGroup * P, vs + g0 * kGroup * P, padded,
-                                      g0 * kGroup, gn * kGroup / 8, Lk, scale, rs);
+  while (true) {
+    const int per_warp = (n_groups + kWarps - 1) / kWarps;
+    const int g0 = warp * per_warp;
+    const int gn = min(per_warp, n_groups - g0);
+    const uint32_t padded = padded_keys<kFusedWarpKeys / 8>(mrow, key0 + g0 * kGroup,
+                                                            gn * kGroup / 8, Lk);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (gn > 0) {
+      attend<T, DH, kFusedWarpKeys / 8>(f, ks + g0 * kGroup * P, vs + g0 * kGroup * P, padded,
+                                        key0 + g0 * kGroup, gn * kGroup / 8, Lk, scale, rs);
+    }
+    key0 += kFusedSlab;
+    if (key0 >= Lk) break;
+    n_groups = (min(kFusedSlab, Lk - key0) + kGroup - 1) / kGroup;
+    __syncthreads();   // every warp is done with the slab before it is refilled
+    stage_rows<T, DH>(kbase, st.kl, key0, n_groups * kGroup, Lk, ks, threadIdx.x, kThreads);
+    stage_rows<T, DH>(vbase, st.vl, key0, n_groups * kGroup, Lk, vs, threadIdx.x, kThreads);
+    cp_async_commit();
   }
   merge_store<T, DH>(rs, reinterpret_cast<float*>(smem),
                      o + (long long)b * st.ob + (long long)h * st.oh + (long long)row0 * st.ol,
@@ -559,7 +579,8 @@ template <typename T, int DH> size_t flash_smem_bytes() {
                    merge_bytes<DH>());
 }
 template <typename T, int DH> size_t fused_smem_bytes(int Lk) {
-  const size_t rows = (size_t)(Lk + kGroup - 1) / kGroup * kGroup;
+  const int slab = Lk < kFusedSlab ? Lk : kFusedSlab;
+  const size_t rows = (size_t)(slab + kGroup - 1) / kGroup * kGroup;
   return max_bytes(2 * rows * pitch<T, DH>() * sizeof(T), merge_bytes<DH>());
 }
 
@@ -591,7 +612,7 @@ cudaError_t launch(bool fused, const void* q, const void* k, const void* v, cons
   T* op = static_cast<T*>(o);
   cudaError_t err;
   if (fused) {
-    err = allow_smem(fused_attn_kernel<T, DH>, fused_smem_bytes<T, DH>(kMaxFusedKeys - 1),
+    err = allow_smem(fused_attn_kernel<T, DH>, fused_smem_bytes<T, DH>(kFusedSlab),
                      fused_ready);
     if (err != cudaSuccess) return err;
     fused_attn_kernel<T, DH><<<grid, kThreads, fused_smem_bytes<T, DH>(Lk), stream>>>(
@@ -622,7 +643,6 @@ int run(bool fused, const void* q, const void* k, const void* v, const void* mas
         int sqb, int sql, int sqh, int skb, int skl, int skh, int svb, int svl, int svh,
         int sob, int sol, int soh, int smb, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  if (fused && Lk >= kMaxFusedKeys) return (int)cudaErrorInvalidValue;
   const Strides st{sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh, smb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

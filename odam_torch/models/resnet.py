@@ -108,7 +108,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Frozen-BN ResNet; returns the requested stage outputs {stage: NCHW}."""
+    """Frozen-BN ResNet; returns the requested stage outputs {stage: NCHW},
+    running no stage past the last one requested."""
 
     def __init__(self, stage_sizes: Sequence[int] = RESNET50_STAGES,
                  return_stages: Sequence[int] = (4,), dtype: torch.dtype = torch.float32,
@@ -145,7 +146,9 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outputs = {}
-        for stage, n_blocks in enumerate(self.stage_sizes, start=1):
+        # stages past the last one asked for would compute nothing returned:
+        # stop there, as TinyBackbone does (JAX's jit drops them unasked)
+        for stage, n_blocks in enumerate(self.stage_sizes[:max(self.return_stages)], start=1):
             for blk in range(n_blocks):
                 x = getattr(self, f"layer{stage}_{blk}")(x)
             if stage in self.return_stages:

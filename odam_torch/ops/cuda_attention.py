@@ -7,8 +7,9 @@ bounds them on the card).  Both run Q.K^T and P.V on the tensor cores
 tile whose eight warps split the keys and merge their softmax states:
 
 - :func:`fused_attention` replaces ``pallas_attention.fused_attention``
-  (``_attn_kernel``): all keys of a (batch, head) slice in shared memory at
-  once, a one-pass softmax with the logits in registers.  Takes Lk < 256.
+  (``_attn_kernel``): the keys of a (batch, head) slice in shared memory,
+  all at once below 256 keys and in slabs of 256 from there, a one-pass
+  softmax a slab with the logits in registers.  Any Lk >= 1, as JAX's.
 - :func:`flash_attention` replaces ``pallas_attention.flash_attention``
   (``_flash_kernel``): K/V stream through shared memory in 16-key tiles with
   an online softmax.  Any Lk >= 1; the ragged key edge is masked in the
@@ -49,7 +50,6 @@ import torch
 from . import build
 
 NEG_INF = -1e9
-FUSED_MAX_KEYS = 256          # the fused kernel holds every key: Lk < 256
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
 SOURCES = (build.PKG / "csrc" / "attention.cu",)
@@ -189,14 +189,12 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Single-tile softmax attention (Lk < 256): [B, Lq, H, dh] -> [B, Lq, H, dh]."""
+    """Single-pass softmax attention over slabs of 256 keys: [B, Lq, H, dh] -> [B, Lq, H, dh]."""
     _check(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
         PLAIN_CALLS["fused_attention"] += 1
         PLAIN_CALLS_BY_DTYPE["fused_attention"][_dtype_name(q)] += 1
         return attention_plain(q, k, v, key_padding_mask)
-    if k.shape[1] >= FUSED_MAX_KEYS:
-        raise ValueError(f"fused_attention holds Lk < {FUSED_MAX_KEYS} keys, got {k.shape[1]}")
     return _launch("fused_attention", q, k, v, key_padding_mask)
 
 

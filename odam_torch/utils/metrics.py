@@ -1,11 +1,13 @@
 """Metrics, logging and profiling (counterpart of ``odam_tpu/utils/metrics.py``):
 ``MetricLogger`` with its JSONL sink, per-stage wall-clock timers, top-k
-accuracy on tensors, and a ``torch.profiler`` trace scope."""
+accuracy on tensors, a ``torch.profiler`` trace scope, and what the tooling
+scripts time with: :func:`device_banner` and :func:`time_ms`."""
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import subprocess
 import time
 from collections import defaultdict, deque
 
@@ -114,3 +116,46 @@ def profiler_trace(log_dir: str | None):
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_banner(device: torch.device) -> str:
+    """The device a measurement runs on.  On the card: its name and the line
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
+    for it, since a card set below its full power limit runs slower."""
+    if device.type != "cuda":
+        return str(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        lines = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        smi = lines[index]
+    except (OSError, subprocess.CalledProcessError, IndexError) as e:
+        smi = f"nvidia-smi unreadable: {e!r}"
+    return f"{torch.cuda.get_device_name(index)} ({smi})"
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, iters: int, device: torch.device) -> float:
+    """Milliseconds a call of ``fn``: one warm call, then ``iters`` calls
+    between two CUDA events on the card (the host clock on the CPU), closed
+    by a synchronize."""
+    fn()
+    synchronize(device)
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3

@@ -131,3 +131,26 @@ def test_run_stages_and_the_eval_clis_default_to_the_card(monkeypatch, tmp_path)
         run_multi_view.main(["--tracks", str(tmp_path / "tracks.pkl"), "--scene", "s",
                              "--out", str(tmp_path / "mv.pkl")])
     assert not (tmp_path / "mv.pkl").exists()
+
+
+TOOLS = ("bench_attention", "profile_pipeline", "ab_step_input", "bench_scene_parallel",
+         "bench_batched_detection", "profile_batched_detector", "lm_envelope_sweep",
+         "crash_recovery_demo")
+
+
+def test_tool_scripts_import_where_jax_cannot_load(tmp_path):
+    """The tooling scripts import in a process whose ``jax`` and ``odam_tpu``
+    raise on import, and their sources name neither."""
+    for name in ("jax", "odam_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is barred')\n")
+    code = ("import importlib\n"
+            f"for m in {TOOLS!r}: importlib.import_module('odam_torch.scripts.' + m)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), os.path.abspath(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in TOOLS:
+        with open(os.path.join(PKG, "scripts", f"{name}.py")) as f:
+            text = f.read()
+        assert "odam_tpu" not in text and "jax" not in text, name
