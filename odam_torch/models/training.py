@@ -101,7 +101,9 @@ class OptaxAdam:
     ``-> adamw`` for each group of parameters, in optax's arithmetic.
 
     ``groups`` maps a group's name to its learning rate and its
-    ``(Flax path, parameter)`` pairs.  The moments are keyed by Flax path in
+    ``(Flax path, parameter)`` pairs.  A learning rate may be a schedule, a
+    function of the count of earlier updates (optax's ``scale_by_schedule``
+    count), evaluated on the host.  The moments are keyed by Flax path in
     :meth:`state_arrays`, and ``count`` is optax's step count, kept on the
     device so that a step makes no host sync."""
 
@@ -118,6 +120,7 @@ class OptaxAdam:
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
         self._b1 = torch.full((), ADAM_B1, device=dev)
         self._b2 = torch.full((), ADAM_B2, device=dev)
+        self.updates = 0       # the host's copy of ``count``, for schedules
 
     def parameters(self) -> list[nn.Parameter]:
         return [p for _, ps in self.groups.values() for p in ps]
@@ -129,6 +132,7 @@ class OptaxAdam:
         c1 = 1 - torch.pow(self._b1, self.count)
         c2 = 1 - torch.pow(self._b2, self.count)
         for name, (lr, params) in self.groups.items():
+            lr = lr(self.updates) if callable(lr) else lr
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
             keep = norm < self.clip_norm
@@ -149,6 +153,7 @@ class OptaxAdam:
                 torch._foreach_add_(upd, torch._foreach_mul(params, self.weight_decay))
             torch._foreach_mul_(upd, -lr)
             torch._foreach_add_(params, upd)
+        self.updates += 1
 
     def state_arrays(self) -> dict[str, np.ndarray]:
         """The optimizer state as numpy arrays: ``count``, and ``mu/<path>``
@@ -164,11 +169,28 @@ class OptaxAdam:
         """Restore what :meth:`state_arrays` gave; every leaf must be there."""
         with torch.no_grad():
             self.count.fill_(float(arrays["count"]))
+            self.updates = int(arrays["count"])
             for name in self.groups:
                 for path, m, v in zip(self.paths[name], self.mu[name], self.nu[name]):
                     key = "/".join(path)
                     m.copy_(torch.from_numpy(np.asarray(arrays["mu/" + key])))
                     v.copy_(torch.from_numpy(np.asarray(arrays["nu/" + key])))
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """optax's ``cosine_decay_schedule`` in its float32 arithmetic: ``count``
+    (earlier updates) -> ``init_value * ((1 - alpha) * 0.5 * (1 + cos(pi *
+    min(count, decay_steps) / decay_steps)) + alpha)``."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, got {decay_steps}")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        t = np.minimum(f32(count), f32(decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    return schedule
 
 
 def make_detr_optimizer(model: nn.Module, cfg: DetrTrainConfig) -> OptaxAdam:

@@ -1,28 +1,29 @@
 """Crash-recovery demonstration: training survives a kill in the middle of a save.
 
-    python -m odam_torch.scripts.crash_recovery_demo --steps 40 --bank 10 [--kill mid_save|none]
+    python -m odam_torch.scripts.crash_recovery_demo --mode detector_frozen \\
+        --steps 2000 --bank 400 [--kill mid_save|none]
 
-Counterpart of ``scripts/crash_recovery_demo.py``, with the same protocol
-and JSON keys; the trainer is the port's own, ``python -m
-odam_torch.scripts.train_detector --synthetic`` (JAX's demo drives the
-rehearsal trainer of ``examples/cli_rehearsal``), on the DETR of
-``--config_path``:
+Counterpart of ``scripts/crash_recovery_demo.py``, with its protocol, flags
+and JSON keys.  Each segment is a process of the rehearsal trainer,
+``python -m odam_torch.examples.cli_rehearsal.train <mode> <seg> <steps>
+<ckpt>`` (``ODAM_BANK`` = ``--bank``, ``ODAM_DECAY_STEPS`` = ``--steps``):
 
-1. an uninterrupted baseline of ``--steps`` steps, saving every ``--bank``
-   steps (``--save_every``);
-2. the same run in a new directory, SIGKILLed the moment a save at step
-   2 x bank or later has its ``ckpt_<step>.tmp`` directory on disk, i.e. in
-   the middle of the write (:func:`odam_torch.utils.checkpoint.save` writes
-   ``.tmp`` and swaps it in by renames);
-3. a fresh process that resumes (``--resume_ckpt``) from the newest complete
-   checkpoint (:func:`odam_torch.utils.checkpoint.latest_path` of each
-   ``ckpt_<step>``) and runs to ``--steps``.
+1. an uninterrupted baseline of ``--steps`` steps (segment 0);
+2. the same run into another checkpoint, SIGKILLed the moment its second
+   bank's ``<ckpt>.tmp`` directory is on disk, i.e. in the middle of the
+   write (:func:`odam_torch.utils.checkpoint.save` writes ``.tmp`` and swaps
+   it in by renames);
+3. a fresh process that resumes from the newest complete checkpoint
+   (:func:`odam_torch.utils.checkpoint.latest_path`) and trains the rest:
+   in ``detector_frozen`` mode, as JAX's demo, segment 1 of the remaining
+   steps; in ``detector`` mode segment 0 again, which the trainer resumes at
+   its banked step (JAX's demo runs segment 1 there too, which its trainer's
+   provenance check refuses).
 
-The final losses of 1 and 3 must agree within ``--tol`` (relative).  The
-port's ``--resume_ckpt`` restores the optimizer state and continues the
-seeded batch stream and dropout at its step, so on one device they agree
-to rounding.  One JSON line reports the outcome; the tool raises if the
-losses disagree.  The trainer runs on the card unless ``--device cpu``.
+A segment restart builds a fresh optimizer, in both packages, so the final
+losses of 1 and 3 agree only within ``--tol`` (relative, JAX's 0.15).  One
+JSON line reports the outcome; the tool raises if the losses disagree.  The
+trainer runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -37,79 +38,50 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-REHEARSAL = os.path.join("examples", "cli_rehearsal", "data_hard", "rehearsal.yaml")
-CKPT = re.compile(r"^ckpt_(\d+)(\.tmp|\.bak)?$")
+TRAINER = "odam_torch.examples.cli_rehearsal.train"
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m odam_torch.scripts.crash_recovery_demo",
                                  description="Kill a training run mid-save, resume it, and "
                                              "compare with an uninterrupted run (PyTorch port).")
+    ap.add_argument("--mode", default="detector_frozen", choices=["detector", "detector_frozen"],
+                    help="detector: the whole DETR's fwd+bwd; detector_frozen: the head on "
+                         "cached backbone features")
     ap.add_argument("--steps", type=int, default=2000)
     ap.add_argument("--bank", type=int, default=400, help="save every this many steps")
     ap.add_argument("--kill", default="mid_save", choices=["mid_save", "none"],
-                    help="mid_save: SIGKILL when a checkpoint's .tmp directory appears; "
+                    help="mid_save: SIGKILL when the second bank's .tmp directory appears; "
                          "none: let the run end by itself")
     ap.add_argument("--tol", type=float, default=0.15,
                     help="relative tolerance on the final loss against the uninterrupted run")
     ap.add_argument("--workdir", default=os.path.join("runs", "crash_recovery_demo"))
-    ap.add_argument("--config_path", default=REHEARSAL)
-    ap.add_argument("--img_h", type=int, default=192)
-    ap.add_argument("--img_w", type=int, default=192)
-    ap.add_argument("--batch_size", type=int, default=8)
-    ap.add_argument("--dtype", default="float32", choices=["bfloat16", "float32"])
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return ap
 
 
-def run_segment(args, out_dir: str, log, resume: str | None = None) -> subprocess.Popen:
+def run_segment(args, seg: int, steps: int, ckpt: str, log) -> subprocess.Popen:
     """One trainer process, its stdout and stderr into ``log``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "odam_torch.scripts.train_detector", "--synthetic",
-           "--config_path", args.config_path, "--steps", str(args.steps),
-           "--save_every", str(args.bank), "--log_every", "1", "--out_dir", out_dir,
-           "--img_h", str(args.img_h), "--img_w", str(args.img_w),
-           "--batch_size", str(args.batch_size), "--dtype", args.dtype,
+    env["ODAM_BANK"] = str(args.bank)
+    env["ODAM_DECAY_STEPS"] = str(args.steps)
+    cmd = [sys.executable, "-m", TRAINER, args.mode, str(seg), str(steps), ckpt,
            "--device", args.device]
-    if resume is not None:
-        cmd += ["--resume_ckpt", resume]
-    return subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return subprocess.Popen(cmd, env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
 
 
 def final_loss(log_path: str) -> float | None:
-    """The last weighted total loss the trainer logged (its ``total`` metric)."""
+    """The last loss the trainer printed (a bank's or the segment's)."""
     with open(log_path) as f:
-        losses = re.findall(r"(?:^|\s)total: (\S+)", f.read())
+        losses = re.findall(r"loss ([0-9.]+)", f.read())
     return float(losses[-1]) if losses else None
-
-
-def saves_in_flight(out_dir: str, min_step: int) -> list[str]:
-    """The ``ckpt_<step>.tmp`` directories of saves at ``min_step`` or later."""
-    if not os.path.isdir(out_dir):
-        return []
-    return [os.path.join(out_dir, n) for n in os.listdir(out_dir)
-            if (m := CKPT.match(n)) and m.group(2) == ".tmp" and int(m.group(1)) >= min_step]
-
-
-def newest_checkpoint(out_dir: str) -> tuple[str, int] | None:
-    """(``ckpt_<step>`` path, step) of the newest complete checkpoint: of each
-    step's ``ckpt_<step>``, ``.tmp`` and ``.bak``, the one
-    ``checkpoint.latest_path`` finds."""
-    from ..utils import checkpoint
-
-    steps = sorted({int(m.group(1)) for n in os.listdir(out_dir) if (m := CKPT.match(n))},
-                   reverse=True)
-    for step in steps:
-        base = os.path.join(out_dir, f"ckpt_{step}")
-        if checkpoint.latest_path(base) is not None:
-            return base, step
-    return None
 
 
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     from .. import resolve_device
+    from ..utils import checkpoint
 
     resolve_device(args.device)     # no card and no --device cpu: raise before any run
     shutil.rmtree(args.workdir, ignore_errors=True)
@@ -120,7 +92,7 @@ def main(argv: list[str] | None = None) -> dict:
     base_log = os.path.join(workdir, "baseline.log")
     t0 = time.time()
     with open(base_log, "w") as f:
-        p = run_segment(args, os.path.join(workdir, "baseline"), f)
+        p = run_segment(args, 0, args.steps, os.path.join(workdir, "baseline_ckpt"), f)
         p.wait()
     if p.returncode != 0:
         raise RuntimeError(f"baseline failed ({p.returncode}); see {base_log}")
@@ -129,57 +101,62 @@ def main(argv: list[str] | None = None) -> dict:
           flush=True)
 
     # ---- interrupted run
-    out_dir = os.path.join(workdir, "crash")
+    ckpt = os.path.join(workdir, "crash_ckpt")
+    tmp = ckpt + ".tmp"
     log1 = os.path.join(workdir, "crash_seg0.log")
-    killed, in_flight, mid_save = None, [], False
+    killed, saves_seen = None, 0
     with open(log1, "w") as f:
-        p = run_segment(args, out_dir, f)
+        p = run_segment(args, 0, args.steps, ckpt, f)
         while p.poll() is None:
-            if args.kill == "mid_save":
-                in_flight = saves_in_flight(out_dir, 2 * args.bank)
-                if in_flight:     # let the first save commit, kill during a later one
+            if args.kill == "mid_save" and os.path.isdir(tmp):
+                saves_seen += 1
+                if saves_seen >= 2:      # let the first bank commit, kill the second
                     os.kill(p.pid, signal.SIGKILL)
+                    killed = "SIGKILL"
                     break
+                while os.path.isdir(tmp) and p.poll() is None:
+                    time.sleep(0.002)    # wait out the first save
             time.sleep(0.002)
         p.wait()
-    if in_flight:
-        # the .tmp outlives the kill only if the save had not swapped it in
-        mid_save = all(os.path.isdir(t) for t in in_flight)
-        killed = (f"SIGKILL {'mid-save' if mid_save else 'after the save'} "
-                  f"({os.path.basename(in_flight[0])} present)")
+    # the .tmp outlives the kill without its meta only if the save was cut
+    mid_save = killed is not None and os.path.isdir(tmp) and checkpoint.latest_path(ckpt) != tmp
+    if killed is not None:
+        killed = f"SIGKILL {'mid-save' if mid_save else 'after the save'} (crash_ckpt.tmp present)"
     else:
         killed = (f"natural exit rc={p.returncode}" if p.returncode
                   else "completed uninterrupted")
     print(f"interruption: {killed}", flush=True)
 
-    # ---- recovery: a fresh process resumes from the newest complete checkpoint
+    # ---- recovery: a fresh process restores the banked state and continues
     t0 = time.time()
-    found = newest_checkpoint(out_dir)
-    if found is None:
+    latest = checkpoint.latest_path(ckpt)
+    if latest is None:
         raise RuntimeError("no intact checkpoint survived the kill")
-    resume, done = found
-    print(f"intact checkpoint after kill: {resume} (step {done})", flush=True)
+    done = int(checkpoint.load_meta(ckpt)["global_step"])
+    print(f"intact checkpoint after kill: {latest} (global step {done})", flush=True)
+    remaining = max(args.steps - done, 1)
+    seg, seg_steps = (0, args.steps) if args.mode == "detector" else (1, remaining)
     log2 = os.path.join(workdir, "crash_seg1.log")
     with open(log2, "w") as f:
-        p = run_segment(args, out_dir, f, resume=resume)
+        p = run_segment(args, seg, seg_steps, ckpt, f)
         p.wait()
     if p.returncode != 0:
         raise RuntimeError(f"recovery segment failed ({p.returncode}); see {log2}")
     with open(log2) as f:
-        if "resuming from" not in f.read():
+        if "resumed from" not in f.read():
             raise RuntimeError("the recovery segment did not restore a checkpoint")
-    # a run that ended by itself leaves its last checkpoint at --steps: nothing to redo
-    rec_final = final_loss(log2) if done < args.steps else final_loss(log1)
-    print(f"recovery: restored + {args.steps - done} steps in {time.time() - t0:.1f}s, "
+    rec_final = final_loss(log2)
+    print(f"recovery: restored + {remaining} steps in {time.time() - t0:.1f}s, "
           f"final loss {rec_final}", flush=True)
 
     rel = abs(rec_final - base_final) / max(abs(base_final), 1e-6)
     result = {
-        "mode": "train_detector",
+        "mode": args.mode,
         "steps": args.steps,
         "interruption": killed,
         "killed_mid_save": mid_save,
         "banked_steps_at_kill": done,
+        "recovery_segment": [seg, seg_steps],
         "baseline_final_loss": base_final,
         "recovered_final_loss": rec_final,
         "relative_diff": rel,

@@ -13,6 +13,7 @@ from odam_torch.ops import sinkhorn as t_sink
 from odam_tpu.models import associator as j_assoc
 from odam_tpu.ops import lap as j_lap
 from odam_tpu.ops import sinkhorn as j_sink
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOG_ASSIGNMENT_ATOL = 5e-4   # tests/test_aux.py:292-298
 

@@ -20,6 +20,7 @@ import torch
 
 from odam_torch.ops import cuda_attention
 from odam_tpu.ops import pallas_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 FUSED_ATOL = 2e-5   # tests/test_aux.py:317
 FLASH_ATOL = 3e-5   # tests/test_aux.py:213

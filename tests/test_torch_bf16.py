@@ -22,6 +22,7 @@ from odam_torch.models import detr as t_detr
 from odam_torch.ops import cuda_attention as ca
 from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import detr as j_detr
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FLOOR = 2.0 ** -8

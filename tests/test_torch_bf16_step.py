@@ -19,6 +19,7 @@ from odam_tpu.runtime import processor as j_proc
 from odam_tpu.runtime import tracker as j_trk
 from test_torch_bf16 import _numpy_tree, _unit_rows, _within_bar
 from test_torch_pipeline import _pose
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pipelines(dtype_name):

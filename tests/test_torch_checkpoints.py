@@ -21,6 +21,7 @@ from odam_torch.models import convert
 from odam_torch.models import detr as t_detr
 from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import detr as j_detr
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CONFIG = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard", "rehearsal.yaml")

@@ -30,22 +30,11 @@ from odam_torch.scripts import eval_scan2cad as t_eval
 from odam_torch.scripts import run_processor as t_run
 from odam_torch.utils.host_boxes import robust_box3d_iou
 from odam_tpu.eval import scan2cad as j_s2c
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 HARD = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
 SCENE = "scene9700_00"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: these tests run beside other test processes (the
-    suite runs on several workers), where torch's default of one thread per
-    core oversubscribes the cores and its spinning threads slow everything
-    several times over.  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def common_flags(split: str, out_dir: str) -> list[str]:

@@ -4,6 +4,7 @@ committed scene9700_00 (committed rehearsal checkpoints, ``--max_objs 32
 decode, the closed-form track boxes and the on-device resize of the raw
 192x192 frames.  The bars are tests/test_torch_cli_offline.py's."""
 from test_torch_cli import run_both_chains
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_fast_device_resize_chain_matches_jax(tmp_path_factory):

@@ -16,6 +16,7 @@ stops; the packages' boxes end at IoU 0.544, and the F1 tables stay
 equal.
 """
 from test_torch_cli import run_both_chains
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_offline_lm_chain_matches_jax(tmp_path_factory):

@@ -29,6 +29,7 @@ from odam_tpu.data import datasets as j_ds
 from odam_tpu.data import scannet as j_scannet
 from odam_tpu.data import transforms as j_tf
 from odam_tpu.models import detr as j_detr
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(REPO, "examples", "cli_rehearsal", "data_hard", "rehearsal.yaml")

@@ -14,6 +14,7 @@ from odam_torch.models import detr as t_detr
 from odam_torch.models import position as t_pos
 from odam_tpu.models import detr as j_detr
 from odam_tpu.models import position as j_pos
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS = ("pred_logits", "pred_boxes", "pred_angle", "pred_offset", "pred_size",
          "pred_depth")

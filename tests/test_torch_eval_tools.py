@@ -39,22 +39,13 @@ from odam_tpu.data import scannet as j_scannet
 from odam_tpu.eval import detection as j_det
 from odam_tpu.utils import files as j_files
 from odam_tpu.utils import metrics as j_metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 HARD = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
 # The committed rehearsal associator as a Flax tree, bit for bit its orbax
 # checkpoint (tests/test_torch_checkpoints.py), read by both packages.
 ASSOC_NPZ = os.path.join(ROOT, "artifacts", "torch", "rehearsal_hard_assoc.npz")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread beside the other test workers (as
-    tests/test_torch_cli.py); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # -------------------------------------------------------- association eval

@@ -36,6 +36,11 @@ def test_every_module_imports_without_jax_or_odam_tpu():
     required |= {"odam_torch.scripts." + m for m in (
         "run_tracking", "eval_association", "run_multi_view", "run_merge",
         "prior_calculation", "result_viewer")}
+    required |= {"odam_torch.examples." + m for m in (
+        "synthetic_mapping", "fit_superquadric", "train_associator_synthetic",
+        "closed_loop.closed_scene", "closed_loop.segment_train", "closed_loop.segment_eval",
+        "cli_rehearsal.common", "cli_rehearsal.hard", "cli_rehearsal.analyze_visibility",
+        "cli_rehearsal.make_dataset", "cli_rehearsal.train", "cli_rehearsal.probe_detector")}
     assert required <= set(mods), required - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -19,6 +19,7 @@ from scipy.optimize import linear_sum_assignment as scipy_lsa
 from odam_torch.models import associator as t_assoc
 from odam_torch.ops import lap as t_lap
 from odam_tpu.ops import lap as j_lap
+from torch_threads import one_torch_thread  # noqa: F401
 
 _j_masked = jax.jit(jax.vmap(j_lap.masked_assignment))
 _j_match = jax.jit(jax.vmap(j_lap.match_by_score, in_axes=(0, None, 0, 0)))

@@ -25,6 +25,7 @@ from odam_tpu.mapping import superquadric as j_sq
 from odam_tpu.runtime import processor as j_proc
 from test_lm_solver import _case, _ring, _views
 from test_torch_mapping import _synthetic_tracks, solve_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, ITERS = 200, 25
 # Per step: the port's x against JAX's from the same (x, lambda).  The soft
@@ -54,16 +55,6 @@ def _pose_and_eps(x):
     """[O, 9] packed params -> ([O, 7] pose and scales, [O, 2] epsilons)."""
     x = np.asarray(x, np.float64)
     return x[:, :7], 1.4 / (1.0 + np.exp(-np.clip(x[:, 7:], -500, 500))) + 0.2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread, as the other port test files run (the suite runs
-    beside other workers).  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def T(a):

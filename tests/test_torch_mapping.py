@@ -59,23 +59,12 @@ from odam_tpu.runtime import tracker as j_trk
 from odam_tpu.utils import boxes as j_boxes
 from odam_tpu.utils import geometry as j_geo
 from odam_tpu.utils import host_boxes as j_hb
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 HARD = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
 IMG_H, IMG_W = 480.0, 640.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: these tests run beside other test processes (the
-    suite runs on several workers), where torch's default of one thread per
-    core oversubscribes the cores and its spinning threads slow everything
-    several times over.  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def T(a):

@@ -16,6 +16,7 @@ from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import detr as j_detr
 from odam_tpu.runtime import processor as j_proc
 from odam_tpu.runtime import tracker as j_trk
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCENE = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard", "scans", "scene9700_00")

@@ -24,6 +24,7 @@ from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import detr as j_detr
 from odam_tpu.models import porting as j_porting
 from test_porting_roundtrip import _bn_out, _dense_out, _inv_conv, _inv_t, _ln_out, _mha_out
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = {"enc_layers": 1, "dec_layers": 1, "GNN_layers": ["self", "cross"],
        "self_GNN_layers": ["self"], "sinkhorn_iterations": 10}

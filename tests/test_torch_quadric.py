@@ -12,6 +12,7 @@ from odam_torch.runtime import tracker as t_trk
 from odam_tpu.mapping import quadric as j_quad
 from odam_tpu.runtime import processor as j_proc
 from odam_tpu.runtime import tracker as j_trk
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
 

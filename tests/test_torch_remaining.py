@@ -38,6 +38,7 @@ from odam_tpu.ops import surface as j_surf
 from odam_tpu.utils import boxes as j_boxes
 from odam_tpu.utils import geometry as j_geo
 from odam_tpu.utils import host_boxes as j_hb
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS = ("pred_logits", "pred_boxes", "pred_angle", "pred_offset", "pred_size", "pred_depth",
          "pred_obj_features")

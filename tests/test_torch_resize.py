@@ -12,6 +12,7 @@ import torch
 
 from odam_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, resize_bilinear_device
 from test_torch_pipeline import _assert_tracks_equal, _pose, _tiny_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[100.0, 0, 32], [0, 100, 32], [0, 0, 1]], np.float32)
 

@@ -17,6 +17,7 @@ from odam_tpu.runtime import offline as j_off
 from odam_tpu.runtime import processor as j_proc
 from odam_tpu.runtime import tracker as j_trk
 from test_torch_pipeline import _assert_store_equal, _assert_tracks_equal, _pose, _tiny_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[100.0, 0, 32], [0, 100, 32], [0, 0, 1]], np.float32)
 

@@ -37,6 +37,7 @@ from odam_tpu.parallel import mesh as j_mesh
 from odam_tpu.runtime import processor as j_proc
 from odam_tpu.runtime import scene_parallel as j_sp
 from test_torch_pipeline import _pose
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings("error:There is a performance drop")
 
@@ -44,16 +45,6 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 HARD = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
 ART = os.path.join(ROOT, "artifacts", "torch")
 HARD_SCENES = ("scene9700_00", "scene9701_00", "scene9702_00")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread, as in tests/test_torch_cli.py: the suite runs on
-    several workers, and torch's threads would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------- units

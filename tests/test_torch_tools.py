@@ -34,6 +34,7 @@ from odam_torch.scripts import lm_envelope_sweep as t_sweep
 from odam_tpu.models import detr as j_detr
 from odam_tpu.models import resnet as j_resnet
 from odam_tpu.ops import pallas_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FUSED_ATOL = 2e-5   # tests/test_aux.py:317

@@ -39,6 +39,7 @@ from odam_torch.scripts import run_processor as t_rp
 from odam_torch.scripts import run_tracking as t_rt
 from odam_torch.utils.host_boxes import robust_box3d_iou
 from odam_tpu.runtime import heuristic_tracker as j_ht
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 HARD = os.path.join(ROOT, "examples", "cli_rehearsal", "data_hard")
@@ -46,16 +47,6 @@ SCENE = "scene9700_00"
 # The committed rehearsal detector as a Flax tree, bit for bit its orbax
 # checkpoint (tests/test_torch_checkpoints.py), read by both packages.
 DETR_NPZ = os.path.join(ROOT, "artifacts", "torch", "rehearsal_hard_detr.npz")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread beside the other test workers (as
-    tests/test_torch_cli.py); restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ tracker

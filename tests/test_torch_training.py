@@ -30,6 +30,7 @@ from odam_tpu.models import detr as j_detr
 from odam_tpu.models import matcher as j_match
 from odam_tpu.models import training as j_train
 from odam_tpu.utils import boxes as j_boxes
+from torch_threads import one_torch_thread  # noqa: F401
 
 C = 5          # classes of the criterion tests
 
