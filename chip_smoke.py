@@ -24,9 +24,13 @@ Phases, each printed as one JSON line on stdout:
    slabs; flash at all three);
    lap: the LAP kernel (odam_torch/csrc/lap.cu) against its plain version,
    the host solver, at the decode's shapes (B = 1 and 8), the matcher's 48
-   problems, tie-heavy integer costs, all-masked problems and 256 x 256:
-   assignments equal in every problem, total cost equal to scipy's, device
-   time from a CUDA graph beside the host path's (copy + host solve);
+   problems, tie-heavy integer costs, all-masked problems, 256 x 256, each
+   K of the registers route (32, 33, 129 columns), the largest problem it
+   stages whole (227 x 256) and the shared route (257 columns):
+   assignments equal in every problem, total cost equal to scipy's, each
+   case on the route lap.plan names, device time from a CUDA graph beside
+   the shared route's kernel at the same case and the host path's (copy +
+   host solve), the plain solver's sweeps and ns a sweep;
 4. modules: the full-width DETR on one 800x1071 frame and the full-width
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
@@ -569,64 +573,33 @@ LAP_SEED = 9
 VARIANTS_SEED = 13
 
 
-def _solve_input(fn, *args) -> torch.Tensor:
-    """The cost [S, R, C] that ``fn(*args)`` (run on the CPU) hands to
-    ``lap.solve``: the priced, transposed problems of a decode or a match."""
-    from odam_torch.ops import lap
-
-    seen, real = [], lap.solve
-    lap.solve = lambda cost: seen.append(cost) or real(cost)
-    try:
-        fn(*args)
-    finally:
-        lap.solve = real
-    return seen[0].reshape(-1, *seen[0].shape[-2:]).contiguous()
-
-
-def _lap_cases(rng) -> list[tuple[str, torch.Tensor]]:
-    """The solver's inputs on the main paths and at the edges."""
-    from odam_torch.ops import lap
-
-    def decode(B, n_tracks=48, n_dets=26, T=64, N=30):
-        score = torch.from_numpy(rng.random((B, T, N)).astype(np.float32))
-        rm, cm = torch.zeros(B, T, dtype=torch.bool), torch.zeros(B, N, dtype=torch.bool)
-        rm[:, :n_tracks], cm[:, :n_dets] = True, True
-        return _solve_input(lap.match_by_score, score, ASSOC_MATCH_THRESHOLD, rm, cm)
-
-    S, B, Q, M = 6, 8, 100, 8           # train_detector: 6 decoder layers x batch 8
-    cost = torch.from_numpy((rng.normal(size=(S, B, Q, M)) * 3).astype(np.float32))
-    tmask = torch.from_numpy(rng.random((B, M)) < 0.6)
-    match = _solve_input(lap.masked_assignment, cost, torch.ones(S, B, Q, dtype=torch.bool),
-                         tmask.expand(S, B, M))
-    return [
-        ("decode B=1 (48 tracks x 26 detections of 64 x 30)", decode(1)),
-        ("decode B=8 (lanes P=8)", decode(8)),
-        ("matcher (6 layers x 8 images, 100 queries x 8 targets)", match),
-        ("tie-heavy integer costs 0..3", torch.from_numpy(
-            rng.integers(0, 4, size=(16, 30, 64)).astype(np.float32))),
-        ("all-masked decode", decode(4, n_tracks=0, n_dets=0)),
-        ("256 x 256", torch.from_numpy(rng.normal(size=(1, 256, 256)).astype(np.float32))),
-    ]
-
-
 def lap_checks() -> tuple[dict, list[dict]]:
     """The LAP kernel against its plain version (the host solver) on the
-    same inputs: assignments equal in every problem, total cost equal to
-    scipy's; the kernel's device time from a CUDA graph, beside the host
-    path's (the copy to the host and the plain solve) as its yardstick; and
-    the decode and the matcher whole on the card against the CPU."""
+    same inputs (``profile_lap.lap_cases``: the main paths' problems, the
+    edges, each K of the registers route and the shared route): assignments
+    equal in every problem, total cost equal to scipy's, each case counted
+    under the route ``lap.plan`` names; the kernel's device time from a CUDA
+    graph, beside the shared route's kernel at the same case (the first
+    kernel, its own yardstick), the host path's (the copy to the host and
+    the plain solve), the plain solver's sweeps and ns a sweep; and the
+    decode and the matcher whole on the card against the CPU."""
     from scipy.optimize import linear_sum_assignment
 
     from odam_torch.ops import lap
+    from odam_torch.scripts.profile_lap import lap_cases, launcher, plain_stats
 
     rng = np.random.default_rng(LAP_SEED)
     rows = []
-    for label, cost in _lap_cases(rng):
+    for label, cost in lap_cases(rng, ASSOC_MATCH_THRESHOLD):
         S, R, C = cost.shape
+        plan = lap.plan(R, C)
         gpu = cost.cuda()
+        routes = dict(lap.ROUTE_LAUNCHES)
         got = lap.solve(gpu)
         torch.cuda.synchronize()
-        want = lap.solve(cost)
+        if lap.ROUTE_LAUNCHES[plan.route] != routes[plan.route] + 1:
+            raise AssertionError(f"lap_solve {label}: not launched on the {plan.route} route")
+        want, stats = plain_stats(cost)
         if not torch.equal(got.cpu(), want):
             bad = int((got.cpu() != want).any(-1).sum())
             raise AssertionError(f"lap_solve {label}: {bad} of {S} problems differ from the "
@@ -644,23 +617,36 @@ def lap_checks() -> tuple[dict, list[dict]]:
             lap.solve(gpu.cpu())
             return (time.perf_counter() - t0) * 1e3
 
+        shared_out = torch.empty_like(got)      # the shared route's kernel, outside the counts
+        shared_route = launcher(lap.load_library(), "shared", gpu, shared_out)
+        if shared_route() != 0:
+            raise AssertionError(f"lap_solve {label}: the shared route's launch failed")
+        torch.cuda.synchronize()
+        if not torch.equal(shared_out.cpu(), want):
+            raise AssertionError(f"lap_solve {label}: the shared route differs from the plain "
+                                 "solver")
         host_ms = sorted(host_path() for _ in range(5))[2]
         n_bytes = 4 * S * R * C + 4 * S * R
         rows.append({
             "name": "lap_solve", "route": "cuda", "source": LAP_SOURCE,
             "replaces": LAP_REPLACES, "case": label, "shape": {"S": S, "R": R, "C": C},
+            "lap_route": plan.route, "K": plan.K, "staged_rows": plan.staged_rows,
             "dtype": "float32", "path": "lap", "launches": None,
             "max_abs_err": 0.0, "tol": "assignments equal to the plain solver's; total cost "
                                        "within 1e-5 x max(1, |cost|) of scipy's",
             "total_cost_gap_scipy": gap,
             "ms": graph_ms(lambda: lap.solve(gpu)), "issue_ms": cuda_ms(lambda: lap.solve(gpu)),
+            "shared_route_ms": graph_ms(shared_route),
             "plain_ms": host_ms, "plain_is": "copy to the host + the plain solver (median of 5)",
             "library_ms": None,
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bound_note": "bytes over 3.35 TB/s; the kernel is latency-bound (a chain of "
-                          "dependent warp reductions per Dijkstra step)",
+            "sweeps": stats["sweeps"], "augment_steps": stats["augment_steps"],
+            "bound_note": "bytes over 3.35 TB/s; the kernel is latency-bound: the chain of "
+                          "dependent Dijkstra sweeps of its slowest problem (sweeps, "
+                          "augment_steps: the plain solver's on this input)",
             "mbytes": n_bytes / 1e6,
         })
+        rows[-1]["ns_per_sweep"] = rows[-1]["ms"] * 1e6 / stats["sweeps"]
     # the whole decode (pricing, solve, scatter) and the matcher on the card
     B, T, N = 8, 64, 30
     score = torch.from_numpy(rng.random((B, T, N)).astype(np.float32))
@@ -680,6 +666,9 @@ def lap_checks() -> tuple[dict, list[dict]]:
     report = {"phase": "lap", "cases": len(rows), "all_equal_plain": True,
               "decode_card_equals_cpu": True, "linear_sum_assignment_equals_scipy": True,
               "device_ms": {r["case"]: r["ms"] for r in rows},
+              "shared_route_ms": {r["case"]: r["shared_route_ms"] for r in rows},
+              "ns_per_sweep": {r["case"]: r["ns_per_sweep"] for r in rows},
+              "routes": {r["case"]: [r["lap_route"], r["K"]] for r in rows},
               "host_path_ms": {r["case"]: r["plain_ms"] for r in rows}}
     return report, rows
 
@@ -971,6 +960,7 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
     a store of 48 tracks), every frame's kernel launches checked, and all of
     them of the models' dtype.  Returns (report, launches, pipeline)."""
     from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import lap
     from odam_torch.runtime import processor
 
     img_h, img_w = SLICE_SHAPE
@@ -1007,6 +997,8 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
                           "synchronizing_calls": sync_calls,
                           "n_detections": int(result.n_detections), "launches": launches})
     slice_launches = _launches()
+    if lap.ROUTE_LAUNCHES != {"registers": slice_launches["lap_solve"], "shared": 0}:
+        raise AssertionError(f"the {phase}'s LAP launches by route: {lap.ROUTE_LAUNCHES}")
     if any(ca.ALIGN_COPIES.values()):
         raise AssertionError(f"the {phase}'s attention inputs needed aligned copies: "
                              f"{ca.ALIGN_COPIES}")
@@ -1024,7 +1016,7 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
               "step_ms_median_frames_2_on": steady[len(steady) // 2],
               "n_tracks": len(tracks), "n_observations": int(sum(len(t) for t in tracks)),
               "overflow_report": pipe.overflow_report(warn=False),
-              "launches": slice_launches,
+              "launches": slice_launches, "lap_route_launches": dict(lap.ROUTE_LAUNCHES),
               "launches_by_dtype": {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()},
               "align_copies": dict(ca.ALIGN_COPIES)}
     if profile:
@@ -3536,6 +3528,8 @@ def main() -> int:
         else:
             main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
             row["launches"] = paths[main_path][row["name"]]
+            if row["name"] == "lap_solve":       # the slice's LAP launches on this row's route
+                row["route_launches"] = slice_report["lap_route_launches"][row["lap_route"]]
         row["launches_by_path"] = {path: counts.get(row["name"])
                                    for path, counts in paths.items()}
     emit({"kernels": kernel_rows})

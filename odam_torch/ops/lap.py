@@ -2,14 +2,18 @@
 
 Counterpart of ``odam_tpu/ops/lap.py``.  The JAX package runs the solver on
 the TPU inside its step.  Here :func:`solve` runs a batch of problems
-[S, R, C] (R <= C) in one launch of the hand-written CUDA kernel
+[S, R, C] (R <= C) in one launch of a hand-written CUDA kernel of
 ``odam_torch/csrc/lap.cu`` (one warp a problem), on the current stream and
 with no host read, so the exact decode stays on the card like every other
-op of the step.  The kernel computes JAX's solver step for step, with the
-same float32 arithmetic and tie-breaks; its plain version is the host solver
+op of the step.  :func:`plan` picks the kernel: the ``registers`` route for
+C <= 256 (each lane's columns in registers, the cost staged in shared
+memory), the ``shared`` route (all state in shared memory) above.  Both
+compute JAX's solver step for step, with the same float32 arithmetic and
+tie-breaks; their plain version is the host solver
 :func:`_solve_square_leq`, which :func:`solve` runs for a CPU tensor (each
-call counted in ``PLAIN_CALLS``).  On a CUDA tensor the kernel runs, each
-launch counted in ``LAUNCHES``, or the call raises: there is no fallback.
+call counted in ``PLAIN_CALLS``).  On a CUDA tensor a kernel runs, each
+launch counted in ``LAUNCHES`` and by route in ``ROUTE_LAUNCHES``, or the
+call raises: there is no fallback.
 
 Around the solver, :func:`masked_assignment`, :func:`match_by_score` and
 :func:`linear_sum_assignment` are batched over leading axes and written as
@@ -21,6 +25,7 @@ plain tensor code.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,10 +35,12 @@ from . import build
 _BIG_COST = 1e6
 SOURCES = (build.PKG / "csrc" / "lap.cu",)
 SMEM_LIMIT = 232448            # dynamic shared memory a block may use on the H100
+REGISTER_K = (1, 2, 4, 8)      # columns a lane of the registers route: C <= 32 K
 
-# Launches of the CUDA kernel, and calls of its plain version that solve()
-# made for CPU tensors.
+# Launches of the CUDA kernels (all, and by route), and calls of their plain
+# version that solve() made for CPU tensors.
 LAUNCHES = {"lap_solve": 0}
+ROUTE_LAUNCHES = {"registers": 0, "shared": 0}
 PLAIN_CALLS = {"lap_solve": 0}
 
 _lib = None
@@ -43,28 +50,67 @@ BUILD_INFO: dict = {}
 def reset_counts() -> None:
     LAUNCHES["lap_solve"] = 0
     PLAIN_CALLS["lap_solve"] = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the library's two entry points."""
+    lib.odam_lap_solve.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                   + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.odam_lap_solve_regs.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                        + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                                        + [ctypes.c_void_p])
+    lib.odam_lap_solve.restype = lib.odam_lap_solve_regs.restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build.build_library("odam_lap", SOURCES, BUILD_INFO)))
-        lib.odam_lap_solve.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                                       + [ctypes.c_longlong, ctypes.c_void_p])
-        lib.odam_lap_solve.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind_library(ctypes.CDLL(str(build.build_library("odam_lap", SOURCES, BUILD_INFO))))
     return _lib
 
 
 def smem_bytes(R: int, C: int) -> int:
-    """Shared memory of one problem's state in the kernel (lap.cu), rounded
-    up to 16 bytes as the launch rounds it."""
+    """Shared memory of one problem's state in the shared route's kernel
+    (lap.cu's lap_kernel), rounded up to 16 bytes as the launch rounds it."""
     return (9 * R + 17 * C + 15) // 16 * 16
 
 
-def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
+class Plan(NamedTuple):
+    route: str            # "registers" (lap_regs_kernel<K>) or "shared" (lap_kernel)
+    K: int                # columns a lane in registers (0 on the shared route)
+    smem_bytes: int       # dynamic shared memory of one block
+    staged_rows: int      # rows of the cost staged in shared memory (registers route)
+    staged: bool          # the whole problem staged
+
+
+def plan(R: int, C: int) -> Plan:
+    """How :func:`solve` runs an [R, C] problem (R <= C) on the card: the one
+    place the choice is made.  C <= 256 takes the registers route with the
+    least K of ``REGISTER_K`` that holds C, the cost staged as far as
+    ``SMEM_LIMIT`` holds its rows; a wider problem the shared route, refused
+    when its state does not fit a block."""
+    if R > C:
+        raise ValueError(f"solve takes R <= C, got [{R}, {C}]: solve the transpose")
+    if C <= 32 * REGISTER_K[-1]:
+        K = next(k for k in REGISTER_K if 32 * k >= C)
+        rows = min(R, SMEM_LIMIT // (4 * C)) if C else 0
+        return Plan("registers", K, (4 * rows * C + 15) // 16 * 16, rows, rows == R)
+    smem = smem_bytes(R, C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"solve: a [{R}, {C}] problem needs {smem} bytes of shared "
+                         f"memory, above the {SMEM_LIMIT} a block may use")
+    return Plan("shared", 0, smem, 0, False)
+
+
+def _solve_square_leq(cost: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
     """The plain version: cost [R, C] on the CPU with R <= C -> col4row [R]
-    int32, JAX's ``_solve_square_leq`` step for step in float32."""
+    int32, JAX's ``_solve_square_leq`` step for step in float32.
+
+    ``stats``, if given, gets ``sweeps`` (Dijkstra steps, one column
+    scanned each) and ``augment_steps`` (columns reassigned) added to it."""
     c = np.ascontiguousarray(cost.detach().cpu().numpy(), dtype=np.float32)
     R, C = c.shape
     inf = np.float32(np.inf)
@@ -73,6 +119,7 @@ def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
     row4col = np.full(C, -1, np.int32)
     col4row = np.full(R, -1, np.int32)
     rows = np.arange(R)
+    sweeps = steps = 0
     for cur_row in range(R):
         spc = np.full(C, inf, np.float32)       # shortest path cost per column
         path = np.full(C, -1, np.int32)         # predecessor row per column
@@ -97,6 +144,7 @@ def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
             else:
                 i = int(row4col[j])
             min_val = lowest
+            sweeps += 1
 
         # dual updates (JV potentials)
         u[cur_row] += min_val
@@ -113,8 +161,12 @@ def _solve_square_leq(cost: torch.Tensor) -> torch.Tensor:
             prev = int(col4row[i])
             col4row[i] = j
             j = prev
+            steps += 1
             if i == cur_row:
                 break
+    if stats is not None:
+        stats["sweeps"] = stats.get("sweeps", 0) + sweeps
+        stats["augment_steps"] = stats.get("augment_steps", 0) + steps
     return torch.from_numpy(col4row)
 
 
@@ -122,8 +174,8 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
     """Exact assignment of every problem of a batch: cost [..., R, C] with
     R <= C -> col4row [..., R] int32 (the column of each row).
 
-    A CUDA tensor goes to the kernel in one launch; a CPU tensor to the plain
-    version, one problem after the other."""
+    A CUDA tensor goes to the kernel that :func:`plan` names, in one launch;
+    a CPU tensor to the plain version, one problem after the other."""
     *lead, R, C = cost.shape
     if R > C:
         raise ValueError(f"solve takes R <= C, got [{R}, {C}]: solve the transpose")
@@ -136,9 +188,7 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
         return out.reshape(*lead, R)
     if cost.device.type != "cuda":
         raise ValueError(f"solve: tensors on {cost.device} have no kernel")
-    if smem_bytes(R, C) > SMEM_LIMIT:
-        raise ValueError(f"solve: a [{R}, {C}] problem needs {smem_bytes(R, C)} bytes of shared "
-                         f"memory, above the {SMEM_LIMIT} a block may use")
+    p = plan(R, C)
     flat = cost.reshape(-1, R, C).contiguous()
     S = flat.shape[0]
     if S > 2 ** 31 - 1:
@@ -146,12 +196,16 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
     out = torch.empty((S, R), dtype=torch.int32, device=cost.device)
     if S and R:
         with torch.cuda.device(cost.device):
-            err = load_library().odam_lap_solve(
-                flat.data_ptr(), out.data_ptr(), S, R, C, R * C,
-                torch.cuda.current_stream().cuda_stream)
+            lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+            if p.route == "registers":
+                err = lib.odam_lap_solve_regs(flat.data_ptr(), out.data_ptr(), S, R, C, R * C,
+                                              p.K, p.staged_rows, stream)
+            else:
+                err = lib.odam_lap_solve(flat.data_ptr(), out.data_ptr(), S, R, C, R * C, stream)
         if err != 0:
-            raise RuntimeError(f"lap_solve kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"lap_solve kernel launch failed ({p.route}): cudaError {err}")
         LAUNCHES["lap_solve"] += 1
+        ROUTE_LAUNCHES[p.route] += 1
     return out.reshape(*lead, R)
 
 
