@@ -51,7 +51,7 @@ Phases, each printed as one JSON line on stdout:
    1e-3, launches flash 0, fused 16 and one LAP a frame once tracks exist,
    no host sync from frame 2 (synchronizing CUDA calls reported);
 8. scene_parallel_full: SceneParallelRunner at full width, P = 1, 2, 4
-   and 8 lanes of 5 uint8 frames each (every lane in its own order), f32
+   and 8 lanes of 4 uint8 frames each (every lane in its own order), f32
    then bf16, every lane against the serial f32 pipeline; aggregate
    frames/s, step and lane-frame times, launches a step (profiled), host
    syncs (none from step 2 on), one LAP launch a step, peak memory, and
@@ -68,9 +68,9 @@ Phases, each printed as one JSON line on stdout:
     fall back, the first 3 iterations agree with the CPU within rtol 1e-3;
 11. scene: ``python -m odam_torch.scripts.run_processor --dtype float32``
     then ``eval_scan2cad`` on the three committed hard-split scenes with
-    the committed weights (artifacts/torch/*.npz), on the card and on the
-    CPU: the same tracks, boxes and F1 table, and the kernel launches of
-    every frame checked;
+    the committed weights (artifacts/torch/*.npz), on the card, then on the
+    CPU (three processes at once, a scene each): the same tracks, boxes and
+    F1 table, and the kernel launches of every frame checked;
 12. scene_parallel_hard: SceneParallelRunner on the same three scenes
     (their first 16 frames) at P = 3 and P = 4 (one lane of padding)
     against the serial OdamPipeline on the card: tracks with frame ids and
@@ -102,9 +102,10 @@ Phases, each printed as one JSON line on stdout:
     card, each rank held to the same stages in one process, with step
     times, the gradient all-reduce, peak memory, launches by stage and the
     lanes' aggregate frames/s at P = 8 (1 x 8 here, 2 x 4 over the ranks);
-18. cli_dist: ``run_processor --scene_parallel 4`` and ``train_detector``
-    on 2 gloo ranks under ``python -m torch.distributed.run``: the scene
-    phase's F1 table, and the checkpoint read by ``run_processor``;
+18. cli_dist: ``run_processor --scene_parallel 4`` on the hard split's
+    first scene and ``train_detector`` on 2 gloo ranks under ``python -m
+    torch.distributed.run``: the scene phase's F1 table on that scene, and
+    the checkpoint read by ``run_processor``;
 19. tracking: ``python -m odam_torch.scripts.run_tracking`` (detector and
     heuristic tracker) at full width with seeded weights in bf16 on the
     hard split at 800x800: per scene frames/s, the median frame, host
@@ -139,7 +140,25 @@ Phases, each printed as one JSON line on stdout:
     launched; ``make_dataset --hard`` into ``chiprun_out/``; the rehearsal
     trainer in each mode for 20 steps at batch 8; ``probe_detector`` on the
     committed weights, card counts equal to the CPU's, fused_attention
-    launched.  Each script's launches by kernel and dtype are counted.
+    launched.  Each script's launches by kernel and dtype are counted;
+24. studies: the rehearsal studies of ``odam_torch/examples/cli_rehearsal``
+    and the artifact tools, each on the card through its own main or
+    public functions: ``ci_eval``, ``tune_min_views`` and ``audit_misses``
+    score the scene phase's card and CPU results (counts, F1, modes equal;
+    F1 the scene phase's); on a one-scene, 16-frame hard split,
+    ``tune_threshold`` runs the reference's operating point (0.6 / 0.8),
+    which is ablate's baseline cell, and ``ablate.run_config`` the
+    ``stale_track_bbox`` fault (its track rows must differ: the variable
+    reached the child), ``ablate_big.score`` pairs the two cells, and the
+    fault's F1 at min_views 6 must fall below the baseline's;
+    ``window_experiment`` fine-tunes the committed associator at window 400
+    for 3 steps and runs that arm (F1 above 0 at min_views 6);
+    ``diagnose_recall``'s three stages on one seed, its oracle_det tracking
+    against the CPU's, fused_attention and lap_solve launched in-process;
+    ``validate`` on the committed weights,
+    card against CPU; ``retrain.sh`` as far as its segment logic.  The
+    spawning scripts run in threads beside the in-process work; their
+    child processes' launches are not counted.
 
 Then the kernel table (the LAP kernel's rows too) with the launch counts of
 every path (each row's time above its bound), the card's name and power
@@ -150,6 +169,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1132,7 +1152,8 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
 
 # -------------------------------------------------------------------- lanes
 
-SP_FRAMES = 5                      # frames a lane in scene_parallel_full
+SP_FRAMES = 4                      # frames a lane in scene_parallel_full (3 give 6
+                                   # orders, fewer than the 8 lanes' own)
 SP_ORDER_SEED = 11                 # the frames, and each lane's order of them
 
 
@@ -1141,9 +1162,15 @@ def _lane_scenes(frames, n_lanes: int, shape) -> list[dict]:
     0 in order), so that no two lanes see the same sequence."""
     n = len(frames)
     rng = np.random.default_rng(SP_ORDER_SEED)
-    orders = [np.arange(n)] + [rng.permutation(n) for _ in range(n_lanes - 1)]
-    if len({tuple(o) for o in orders}) != n_lanes:
-        raise AssertionError("two lanes got the same order of frames")
+    orders = [tuple(range(n))]
+    for _ in range(1000):            # draw until every lane has an order of its own
+        if len(orders) == n_lanes:
+            break
+        order = tuple(int(i) for i in rng.permutation(n))
+        if order not in orders:
+            orders.append(order)
+    if len(orders) != n_lanes:
+        raise AssertionError(f"{n} frames give no {n_lanes} different orders")
     return [{"frames": [frames[i] for i in order], "frame_ids": list(range(n)),
              "T_wcs": [_pose(int(i)) for i in order], "K": _intrinsics(*shape)}
             for order in orders]
@@ -1243,9 +1270,9 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
                             lanes: tuple[int, ...] = SP_LANES,
                             n_frames: int = SP_FRAMES) -> tuple[dict, dict]:
     """SceneParallelRunner at full width (the slice's seeded models and
-    PipelineConfig, 800x1071 uint8 frames) at P = 1, 2, 4 and 8 lanes of 5
-    frames each, every lane's frames in its own order; f32 (TF32 off), then
-    bf16.  Every lane is held to the serial f32 pipeline on its frames:
+    PipelineConfig, 800x1071 uint8 frames) at P = 1, 2, 4 and 8 lanes of
+    ``n_frames`` frames each, every lane's frames in its own order; f32
+    (TF32 off), then bf16.  Every lane is held to the serial f32 pipeline on its frames:
     detections a frame and track ids exact, and its logged rows by
     :func:`_hold_lane` (bf16: the slice_bf16 bar, with pixels in units of
     the frame).  Each (dtype, P) runs three times: steps synchronized one by
@@ -1946,10 +1973,71 @@ def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
         run_processor.run_scene = inner["scene"]
 
 
+SCENE_CPU_SHARDS = 3      # the scene phase's CPU run: processes at once, a scene each
+SCENE_CPU_THREADS = 2     # torch threads of each
+
+
+def scene_cli_run(device: str, out_dir: str, shard: str | None = None,
+                  json_out: str | None = None) -> dict:
+    """One run of the scene phase's CLI chain (``_run_cli``, every frame's
+    kernel calls recorded): its frames, seconds, scene seconds and calls.
+    With ``shard`` ("i/n", ``run_processor --shard``) it runs the i-th of n
+    shards of the scenes at SCENE_CPU_THREADS threads and writes the run to
+    ``json_out``: a process of :func:`_scene_shards`."""
+    _, common = _scene_flags()
+    argv = common + ["--out_dir", out_dir, "--device", device]
+    if shard:
+        torch.set_num_threads(SCENE_CPU_THREADS)
+        argv += ["--shard", shard]
+    _reset_counts()
+    frames, scene_s, seconds = _run_cli(argv)
+    run = {"frames": frames, "seconds": seconds, "scene_seconds": scene_s,
+           "counts": _launches(device == "cuda")}
+    if json_out:
+        with open(json_out, "w") as f:
+            json.dump(run, f)
+    return run
+
+
+def _scene_shards(device: str, out_dir: str, log_root: str) -> dict:
+    """The scene phase's CLI chain on ``device`` in SCENE_CPU_SHARDS processes
+    at once, each a shard of the scenes into ``out_dir``; their runs merged
+    (frames, scene seconds, calls summed), with the wall time as seconds."""
+    t0 = time.perf_counter()
+    logs = [os.path.join(log_root, f"{device}_shard{i}") for i in range(SCENE_CPU_SHARDS)]
+    procs = []
+    try:
+        for i, log in enumerate(logs):
+            with open(log + ".log", "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", f"import chip_smoke; chip_smoke.scene_cli_run("
+                     f"{device!r}, {out_dir!r}, '{i}/{SCENE_CPU_SHARDS}', {log + '.json'!r})"],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                    stderr=subprocess.STDOUT))
+        codes = [p.wait() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = []
+    for log, code in zip(logs, codes):
+        if code != 0:
+            with open(log + ".log") as f:
+                raise AssertionError(f"scene: a {device} shard failed: {f.read()[-3000:]}")
+        with open(log + ".json") as f:
+            runs.append(json.load(f))
+    return {"frames": [fr for r in runs for fr in r["frames"]],
+            "seconds": time.perf_counter() - t0,
+            "scene_seconds": {k: v for r in runs for k, v in r["scene_seconds"].items()},
+            "counts": {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]}}
+
+
 def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
               devices: tuple[str, str] = ("cuda", "cpu")) -> tuple[dict, dict]:
     """The CLI chain on the committed hard split's three scenes with the
-    committed weights, on the card and on the CPU; eval_scan2cad on both.
+    committed weights, on the card and then on the CPU (:func:`_scene_shards`,
+    once the card's run is over); eval_scan2cad on both.
 
     Card and CPU must give the same tracks per scene (frame ids and classes
     exact, every row within atol 1e-3), bboxes_qc within IoU 0.95 per
@@ -1966,25 +2054,23 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
     import pickle
 
     from odam_torch.eval import scan2cad
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.utils.host_boxes import robust_box3d_iou
 
-    scenes, common = _scene_flags()
-    runs, results, f1 = {}, {}, {}
+    scenes, _ = _scene_flags()
+    card, cpu = devices
+    os.makedirs(out_root, exist_ok=True)
+    runs = {card: scene_cli_run(card, os.path.join(out_root, card))}
+    runs[cpu] = _scene_shards(cpu, os.path.abspath(os.path.join(out_root, cpu)), out_root)
+    results, f1 = {}, {}
     for device in devices:
-        out_dir = os.path.join(out_root, device)
-        _reset_counts()
-        frames, scene_s, seconds = _run_cli(common + ["--out_dir", out_dir, "--device", device])
-        runs[device] = {"frames": frames, "seconds": seconds, "scene_seconds": scene_s,
-                        "counts": _launches(device == "cuda")}
         results[device] = {}
         for s in scenes:
-            with open(os.path.join(out_dir, s, s), "rb") as f:
+            with open(os.path.join(out_root, device, s, s), "rb") as f:
                 results[device][s] = pickle.load(f)
-        f1[device] = scan2cad.evaluate(out_dir, os.path.join(SCENE_DATA, "full_annotations.json"),
+        f1[device] = scan2cad.evaluate(os.path.join(out_root, device),
+                                       os.path.join(SCENE_DATA, "full_annotations.json"),
                                        os.path.join(SCENE_DATA, "scans"), scenes,
-                                       min_views=10, verbose=device == devices[0])
-    card, cpu = devices
+                                       min_views=10, verbose=device == card)
     per_scene = {}
     for s in scenes:
         g, c = results[card][s], results[cpu][s]
@@ -2018,6 +2104,8 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
     frames = runs[card]["frames"]
     report = {"phase": "scene", "scenes": per_scene, "f1": f1[card],
               "f1_card_equals_cpu": True,
+              "cpu_run": (f"after the card's, in {SCENE_CPU_SHARDS} processes at once: "
+                          f"a shard of the scenes and {SCENE_CPU_THREADS} torch threads each"),
               "seconds": {d: r["seconds"] for d, r in runs.items()},
               "scene_seconds": {d: r["scene_seconds"] for d, r in runs.items()},
               "frames": len(frames), "associated_frames": sum(fr["associated"] for fr in frames),
@@ -2551,6 +2639,7 @@ def train_cli_run(out_root: str = os.path.join("runs", "train_cli"),
 
 
 DIST_SIZE = "full"                 # dryrun_distributed's full-width models
+CLI_DIST_SCENES = 1                # cli_dist's scenes of the hard split
 DIST_TIMEOUT_S = 600.0             # a spawned job's ranks in all: a hung collective fails
 
 
@@ -2641,13 +2730,17 @@ def dist_runs(out_root: str = os.path.join("runs", "dist"), device: str = "cuda"
     return reports, paths
 
 
-def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"),
+def cli_dist_run(scene_dir: str = os.path.join("chiprun_out", "scene", "cuda"),
+                 out_root: str = os.path.join("runs", "cli_dist"),
                  device: str = "cuda", n_lanes: int = 4, ranks: int = 2,
-                 extra_train: tuple[str, ...] = (), short_side: int = 512) -> dict:
+                 extra_train: tuple[str, ...] = (), short_side: int = 512,
+                 n_scenes: int = CLI_DIST_SCENES) -> dict:
     """Both CLIs on ``ranks`` gloo ranks under ``python -m
-    torch.distributed.run``: ``run_processor --scene_parallel 4`` on the hard
-    split with the scene phase's flags, then ``eval_scan2cad``, whose F1
-    table must equal the scene phase's; then 3 steps of ``train_detector
+    torch.distributed.run``: ``run_processor --scene_parallel 4`` on the
+    first ``n_scenes`` scenes of the hard split with the scene phase's
+    flags, then ``eval_scan2cad``, whose F1 table must equal that of the
+    scene phase's results in ``scene_dir`` on the same scenes (the lanes pad
+    a scene short of P); then 3 steps of ``train_detector
     --synthetic`` (its defaults: batch 8, 512x672, bf16), whose ``ckpt_3``
     a 2-frame ``run_processor`` reads."""
     import pickle
@@ -2669,6 +2762,13 @@ def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"
         return proc.stdout, time.perf_counter() - t0
 
     scene_ids, flags = _scene_flags()
+    scene_ids = scene_ids[:n_scenes]
+    os.makedirs(out_root)
+    scenes = os.path.join(out_root, "scenes.txt")
+    with open(scenes, "w") as f:
+        f.write("\n".join(scene_ids) + "\n")
+    flags[flags.index("--sequences") + 1] = scenes
+    scene_f1 = _f1(scene_dir, scene_ids)
     result_dir = os.path.join(out_root, "result")
     stdout, sp_seconds = run(["odam_torch.scripts.run_processor", *flags, "--out_dir",
                               result_dir, "--device", device, "--scene_parallel", str(n_lanes),
@@ -2676,11 +2776,11 @@ def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"
     f1 = eval_scan2cad.main(["--result_dir", result_dir,
                              "--scan2cad", os.path.join(SCENE_DATA, "full_annotations.json"),
                              "--scans_root", os.path.join(SCENE_DATA, "scans"),
-                             "--val_split", os.path.join(SCENE_DATA, "val.txt"),
+                             "--val_split", scenes,
                              "--min_views", "10"])
     if f1 != scene_f1:
         raise AssertionError(f"cli_dist: F1 {f1['average']} differs from the scene phase's "
-                             f"{scene_f1['average']}")
+                             f"{scene_f1['average']} on {scene_ids}")
     groups = [line for line in stdout.splitlines() if line.startswith("group of")]
     train_dir = os.path.join(out_root, "train_detector")
     _, train_seconds = run(["odam_torch.scripts.train_detector", "--synthetic", "--steps", "3",
@@ -2708,7 +2808,7 @@ def cli_dist_run(scene_f1: dict, out_root: str = os.path.join("runs", "cli_dist"
         out = pickle.load(f)
     if len(frames) != 2 or not all(np.isfinite(x).all() for x in out["tracks"]):
         raise AssertionError(f"cli_dist: run_processor gave {len(frames)} frames")
-    return {"phase": "cli_dist", "ranks": ranks, "backend": "gloo",
+    return {"phase": "cli_dist", "ranks": ranks, "backend": "gloo", "scenes": scene_ids,
             "note": "ranks sharing one card: not a speed-up",
             "run_processor_seconds": sp_seconds, "groups": groups, "f1": f1["average"],
             "f1_equals_scene": True, "train_detector_seconds": train_seconds,
@@ -2997,14 +3097,14 @@ TOOLS_DIR = os.path.join("runs", "tools")    # traces and the crash demo's runs
 TOOL_ARGS = {
     "bench_attention": ["--iters", "10"],                # f32, then bf16
     "profile_pipeline": ["--iters", "10", "--frames", "30"],
-    "ab_step_input": ["--frames", "20"],
+    "ab_step_input": ["--frames", "10"],                 # a pass, 2 passes a form
     "bench_scene_parallel": ["--lanes", "1", "8", "--passes", "2"],
     "bench_batched_detection": ["--batches", "1,4,8,16", "--iters", "8"],
     "profile_batched_detector": ["--batch", "16", "--passes", "3", "--reps", "5",
                                  "--per_stage"],
     "lm_envelope_sweep": [],                             # its defaults
     # the rehearsal trainer's detector mode (ResNet-50 DETR at 128x128, batch 8)
-    "crash_recovery_demo": ["--mode", "detector", "--steps", "12", "--bank", "3"],
+    "crash_recovery_demo": ["--mode", "detector", "--steps", "8", "--bank", "3"],
 }
 TOOL_ENV = {"ab_step_input": {"ODAM_AB_PASSES": "2"},
             "bench_scene_parallel": {"ODAM_BENCH_FRAMES": "8"}}
@@ -3057,17 +3157,24 @@ def _kernel_events(trace_dir: str) -> int:
     return sum(1 for e in events if e.get("cat") == "kernel")
 
 
-def _with_env(env: dict, fn):
+@contextlib.contextmanager
+def _env_set(env: dict):
+    """``env`` set in ``os.environ`` inside the block, as it was after."""
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return fn()
+        yield
     finally:
         for k, v in old.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _with_env(env: dict, fn):
+    with _env_set(env):
+        return fn()
 
 
 def tools_run(device: str = "cuda", out_root: str = TOOLS_DIR) -> tuple[dict, dict, dict]:
@@ -3400,6 +3507,321 @@ def examples_run(device: str = "cuda", out_root: str = EXAMPLES_OUT,
     return report, paths
 
 
+STUDIES_OUT = os.path.join("chiprun_out", "studies")
+STUDIES_FRAMES = 16           # the ablation's split: one hard scene (seed 0) of 16 frames
+STUDIES_BOOT = 1000           # bootstrap draws of the phase's scoring (the scripts' 10000)
+STUDIES_FT_STEPS = 3          # window_experiment's fine-tune at window 400 (the script's 1200)
+STUDIES_STREAM_FRAMES = 160   # the fine-tune's training streams (the script's 480)
+STUDIES_CHILD_THREADS = "2"   # OMP_NUM_THREADS of the scripts' child processes
+STUDIES_CPU_THREADS = 2       # the CPU references' process, beside the card's
+STUDIES_IOU_ATOL = 0.02       # card vs CPU IoUs with the ground truth (read: 0.0053, 0.0076)
+STUDIES_MIN_VIEWS = 6         # the cells' and the window arm's bar: at 10, 16 frames give F1 0
+STUDIES_NLL_ATOL = 1e-4       # validate's NLL, card vs CPU
+STUDIES_SEED = 0              # diagnose_recall's layout seed; run_stage's rng is 7000 + seed
+
+
+def studies_cpu_reference(out_path: str) -> None:
+    """The studies phase's CPU references, run in a process of their own
+    beside the card's work: ``diagnose_recall``'s oracle_det tracking on
+    STUDIES_SEED and ``validate`` on the committed weights, pickled to
+    ``out_path``."""
+    import pickle
+
+    from odam_torch.artifacts import validate
+    from odam_torch.examples.cli_rehearsal import common, diagnose_recall, hard
+
+    torch.set_num_threads(STUDIES_CPU_THREADS)
+    t0 = time.perf_counter()
+    pipe = diagnose_recall.build_pipeline(common.ASSOC_WEIGHTS, "exact", "cpu")
+    pipe.init_sequence(hard.K, hard.IMG, hard.IMG)
+    tracks = diagnose_recall.oracle_tracks(pipe, STUDIES_SEED, 0.02,
+                                           np.random.default_rng(7000 + STUDIES_SEED))
+    t1 = time.perf_counter()
+    val = validate.main(["--device", "cpu"])
+    with open(out_path, "wb") as f:
+        pickle.dump({"tracks": tracks, "validate": val,
+                     "seconds": {"diagnose_recall": t1 - t0,
+                                 "validate": time.perf_counter() - t1}}, f)
+
+
+def _retrain_first_segments(out_root: str, device: str) -> list[str]:
+    """``odam_torch/artifacts/retrain.sh --out <out_root>/out`` as far as its
+    segment logic: a stub ``python`` first on ``PATH`` logs every call and
+    runs the real interpreter only for the meta heredoc (``python -``), on a
+    stub detector checkpoint at global step 3000.  Returns the logged
+    trainer calls."""
+    from odam_torch.utils import checkpoint
+
+    stub, log, out = (os.path.join(out_root, p) for p in ("bin", "calls.log", "out"))
+    os.makedirs(stub)
+    with open(os.path.join(stub, "python"), "w") as f:
+        f.write(f'#!/bin/sh\necho "$*" >> "{log}"\n'
+                f'if [ "$1" = "-" ]; then exec "{sys.executable}" "$@"; fi\nexit 0\n')
+    os.chmod(os.path.join(stub, "python"), 0o755)
+    tiny = {"x": np.zeros(1, np.float32)}
+    checkpoint.save(os.path.join(out, "rehearsal_hard_assoc_ckpt"), tiny, meta={"global_step": 800})
+    checkpoint.save(os.path.join(out, "rehearsal_hard_detr_ckpt"), tiny,
+                    meta={"global_step": 3000, "seg": 1, "seg_steps": 1500})
+    proc = subprocess.run(["bash", os.path.join("odam_torch", "artifacts", "retrain.sh"),
+                           "--out", out, "--device", device], capture_output=True, text=True,
+                          env=dict(os.environ, PATH=stub + os.pathsep + os.environ["PATH"]),
+                          timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"retrain.sh failed: {proc.stderr[-2000:]}")
+    with open(log) as f:
+        return [c for c in f.read().splitlines() if not c.startswith("- ")]
+
+
+def _rows_differ(a: dict, b: dict) -> bool:
+    """Whether two results' tracks differ in any shape or row."""
+    return len(a["tracks"]) != len(b["tracks"]) or any(
+        x.shape != y.shape or not np.array_equal(x, y) for x, y in zip(a["tracks"], b["tracks"]))
+
+
+def _plain_calls() -> dict:
+    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import lap
+
+    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS}
+
+
+def studies_run(scene_f1: dict, out_root: str = STUDIES_OUT,
+                scene_root: str = os.path.join("chiprun_out", "scene"),
+                devices: tuple[str, str] = ("cuda", "cpu"), frames: int = STUDIES_FRAMES,
+                ft_steps: int = STUDIES_FT_STEPS, stream_frames: int = STUDIES_STREAM_FRAMES,
+                boot: int = STUDIES_BOOT) -> tuple[dict, dict]:
+    """The rehearsal studies of ``odam_torch/examples/cli_rehearsal`` and the
+    artifact tools of ``odam_torch/artifacts``, each run at least once on the
+    card (module docstring, phase 24).  Threads run what lives in child
+    processes beside the in-process work, on a one-scene split of
+    ``frames`` frames: ``tune_threshold`` at the reference's operating
+    point, ablate's baseline cell (linked under that name), and
+    ``ablate.run_config`` for the ``stale_track_bbox`` fault; ``window_experiment``'s
+    ``finetune`` at window 400 for ``ft_steps`` steps on ``stream_frames``-
+    frame streams, then ``run_arm``; ``retrain.sh`` as far as its segment
+    logic; the CPU references (:func:`studies_cpu_reference`).  In this
+    process, in order: ``ci_eval``, ``tune_min_views`` and ``audit_misses``
+    score the scene phase's card and CPU results (``scene_root``): counts,
+    F1 and modes equal, F1 the scene phase's, IoUs with the ground truth
+    within STUDIES_IOU_ATOL (the scene phase holds card against CPU boxes to
+    IoU SCENE_QC_IOU, not to equality); ``diagnose_recall``'s three stages
+    on STUDIES_SEED (side by side) and its oracle_det tracking, then
+    ``validate``, each with its launches counted: fused_attention (and for
+    diagnose_recall lap_solve) launched, no plain or host call on the card;
+    their results against the CPU's.  Then ``ablate_big.score`` pairs the
+    two cells, whose track rows must differ and whose F1 at
+    STUDIES_MIN_VIEWS must drop with the fault; the window arm's F1 there
+    must be above 0.  Returns (report, launches by path)."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    from odam_torch.artifacts import validate
+    from odam_torch.examples.cli_rehearsal import (ablate, ablate_big, audit_misses, ci_eval,
+                                                   common, diagnose_recall, hard, make_dataset,
+                                                   tune_min_views, tune_threshold,
+                                                   window_experiment)
+    from odam_torch.utils.metrics import device_banner
+
+    card, cpu = devices
+    dev = torch.device(card)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    report = {"phase": "studies", "device": device_banner(dev), "seconds_by_module": {},
+              "depth": {"frames": frames, "ft_steps": ft_steps, "stream_frames": stream_frames,
+                        "boot": boot}}
+    seconds = report["seconds_by_module"]
+    paths = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root = os.path.abspath(out_root)
+    data = os.path.join(out_root, "data")
+    make_dataset.main_hard(data, seeds=(STUDIES_SEED,), n_frames=frames)
+    ckpts = (common.DETR_WEIGHTS, common.ASSOC_WEIGHTS)
+    cells = os.path.join(out_root, "ablate")
+    names = ("adam_exact_sampled", "FAULT_stale_track_bbox")
+
+    def baseline():       # the reference's operating point is ablate's baseline
+        sweep = timed("tune_threshold", tune_threshold.main, [
+            "--data", data, "--out", cells, "--thresholds", "0.6", "--attach", "0.8",
+            "--device", card, "--detector_ckpt", ckpts[0], "--associator_ckpt", ckpts[1]])
+        os.symlink(sweep[0]["name"], os.path.join(cells, names[0]))
+        return sweep
+
+    def fault():
+        return timed("ablate", ablate.run_config, data, cells, names[1],
+                     *ablate_big.EVAL_CELLS[names[1]], ckpts, card)
+
+    def window():
+        ck = os.path.join(out_root, "window", "assoc_w400_long_ckpt")
+        losses = timed("window_experiment", window_experiment.finetune, 400, ckpts[1], ck,
+                       ft_steps, card)
+        arm = timed("window_experiment", window_experiment.run_arm, data,
+                    os.path.join(out_root, "window"), 400, ck, ckpts[0], STUDIES_MIN_VIEWS, card)
+        return losses, arm
+
+    def cpu_reference():
+        out = os.path.join(out_root, "cpu_reference.pkl")
+        with open(os.path.join(out_root, "cpu_reference.log"), "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.studies_cpu_reference({out!r})"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            with open(os.path.join(out_root, "cpu_reference.log")) as f:
+                raise AssertionError(f"studies' CPU references failed: {f.read()[-3000:]}")
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    stream = window_experiment.STREAM_FRAMES
+    window_experiment.STREAM_FRAMES = stream_frames
+    try:
+        with ThreadPoolExecutor(5) as pool, _env_set({"OMP_NUM_THREADS": STUDIES_CHILD_THREADS}):
+            futures = {"baseline": pool.submit(baseline), "fault": pool.submit(fault),
+                       "window": pool.submit(window),
+                       "retrain": pool.submit(timed, "retrain.sh", _retrain_first_segments,
+                                              os.path.join(out_root, "retrain"), card),
+                       "cpu": pool.submit(timed, "cpu_references", cpu_reference)}
+
+            # 1. scoring of the scene phase's results, card and CPU
+            scores = {}
+            for d in dict.fromkeys(devices):
+                result_dir = os.path.join(scene_root, d)
+                table = timed("ci_eval", ci_eval.scene_table, result_dir, SCENE_DATA)
+                scores[d] = {
+                    "table": table, "ci": timed("ci_eval", ci_eval.bootstrap_ci, table, boot),
+                    "min_views": [timed("tune_min_views", tune_min_views.score, result_dir,
+                                        SCENE_DATA, mv) for mv in (4, 6, 8, 10)],
+                    "audit": [row for seed in hard.EVAL_SEEDS for row in timed(
+                        "audit_misses", audit_misses.audit_scene, seed, result_dir)[0]]}
+
+            # 2. diagnose_recall: the stages side by side on the card (each ends in an
+            # eval_scan2cad process; only oracle_det launches kernels), then
+            # oracle_det's tracking alone
+            def diagnose():
+                with ThreadPoolExecutor(3) as stage_pool:
+                    stages = list(stage_pool.map(
+                        lambda stage: diagnose_recall.run_stage(
+                            stage, os.path.join(out_root, "diagnose"), 0.02, ckpts[1], "exact",
+                            card, (STUDIES_SEED,)),
+                        ("gt_full", "gt_visible", "oracle_det")))
+                pipe = diagnose_recall.build_pipeline(ckpts[1], "exact", card)
+                pipe.init_sequence(hard.K, hard.IMG, hard.IMG)
+                return stages, diagnose_recall.oracle_tracks(
+                    pipe, STUDIES_SEED, 0.02, np.random.default_rng(7000 + STUDIES_SEED))
+
+            plain_before = _plain_calls()
+            (stages, tracks), diag_calls, diag_dtype = timed("diagnose_recall", _counted, dev,
+                                                             diagnose)
+            diag_plain = {k: n - plain_before[k] for k, n in _plain_calls().items()}
+
+            # 3. validate on the committed weights
+            plain_before = _plain_calls()
+            val_card, val_calls, val_dtype = timed("validate", _counted, dev, validate.main,
+                                                   ["--device", card])
+            val_plain = {k: n - plain_before[k] for k, n in _plain_calls().items()}
+            results = {k: f.result() for k, f in futures.items()}
+    finally:
+        window_experiment.STREAM_FRAMES = stream
+
+    g, c = scores[card], scores[cpu]
+    iou_diff = max([float(np.abs(a - b).max()) for a, b in zip(g["table"]["obj_ious"],
+                                                               c["table"]["obj_ious"])]
+                   + [abs(a[k] - b[k]) for a, b in zip(g["audit"], c["audit"])
+                      for k in a if k.endswith("iou")], default=0.0)
+    counted = ("precision", "recall", "f1", "n_gt", "n_pred", "n_tp", "f1_ci", "recall_ci",
+               "precision_ci")
+    if not (np.array_equal(g["table"]["counts"], c["table"]["counts"])
+            and all(g["ci"][k] == c["ci"][k] for k in counted)
+            and g["min_views"] == c["min_views"]
+            and [(r["gt"], r["mode"], r.get("blame")) for r in g["audit"]]
+            == [(r["gt"], r["mode"], r.get("blame")) for r in c["audit"]]
+            and iou_diff <= STUDIES_IOU_ATOL):
+        raise AssertionError(f"studies: card and CPU scoring differ (IoU {iou_diff:.3e}): "
+                             f"{g['ci']} {c['ci']} {g['min_views']} {c['min_views']}")
+    if abs(g["ci"]["f1"] - scene_f1["average"]["f1"]) > 1e-12 or \
+            g["min_views"][-1]["f1"] != round(scene_f1["average"]["f1"], 4):
+        raise AssertionError(f"studies: F1 {g['ci']['f1']} is not the scene phase's "
+                             f"{scene_f1['average']['f1']}")
+    modes = [r["mode"] for r in g["audit"]]
+    report["scoring"] = {
+        "ci": g["ci"], "min_views": g["min_views"], "card_equals_cpu": True,
+        "max_iou_diff_card_vs_cpu": iou_diff, "iou_atol": STUDIES_IOU_ATOL,
+        "audit_modes": {m: modes.count(m) for m in sorted(set(modes))},
+        "audit_blames": [r["blame"] for r in g["audit"] if "blame" in r]}
+
+    ref = results["cpu"]
+    seconds["cpu_references_by_part"] = ref["seconds"]
+    paths["studies:diagnose_recall"] = diag_calls
+    paths["studies:validate"] = val_calls
+    if on_card and not (diag_calls["fused_attention"] and diag_calls["lap_solve"]
+                        and not any(diag_plain.values())):
+        raise AssertionError(f"diagnose_recall: launches {diag_calls}, plain calls {diag_plain}")
+    if on_card and not (val_calls["fused_attention"] and not any(val_plain.values())):
+        raise AssertionError(f"validate: launches {val_calls}, plain calls {val_plain}")
+    cpu_tracks = ref["tracks"]
+    row_diff = max((float(np.abs(a - b).max()) for a, b in zip(tracks, cpu_tracks)
+                    if a.shape == b.shape), default=0.0)
+    if not ([t[:, :2].tolist() for t in tracks] == [t[:, :2].tolist() for t in cpu_tracks]
+            and row_diff <= SCENE_ROW_ATOL):
+        raise AssertionError(f"diagnose_recall oracle_det: card tracks {[len(t) for t in tracks]}"
+                             f" against the CPU's {[len(t) for t in cpu_tracks]}, rows "
+                             f"{row_diff:.3e}")
+    report["diagnose_recall"] = {
+        "seed": STUDIES_SEED, "stages": stages, "oracle_det_tracks": [len(t) for t in tracks],
+        "card_vs_cpu": {"ids_equal": True, "max_row_abs_diff": row_diff, "atol": SCENE_ROW_ATOL},
+        "launches": diag_calls, "launches_by_dtype": diag_dtype, "plain_calls_on_card": diag_plain}
+    val_cpu = ref["validate"]
+    nll_diff = abs(val_card["associator_nll"] - val_cpu["associator_nll"])
+    if not (nll_diff <= STUDIES_NLL_ATOL and val_card["detector"] == val_cpu["detector"]):
+        raise AssertionError(f"validate: card {val_card} against CPU {val_cpu}")
+    report["validate"] = {"card": val_card, "cpu": val_cpu, "nll_diff": nll_diff,
+                          "nll_atol": STUDIES_NLL_ATOL, "launches": val_calls,
+                          "launches_by_dtype": val_dtype, "plain_calls_on_card": val_plain}
+
+    retrain_want = [f"-m odam_torch.examples.cli_rehearsal.train detector {s} 1500 "
+                    f"{os.path.join(out_root, 'retrain', 'out', 'rehearsal_hard_detr_ckpt')} "
+                    f"--device {card}" for s in range(2, 12)]
+    if results["retrain"] != retrain_want:
+        raise AssertionError(f"retrain.sh: {results['retrain']}")
+    report["retrain_sh"] = {"stub_global_step": 3000, "segments": list(range(2, 12))}
+
+    # the threads' scripts: the fault reached its child and costs F1; ablate_big's decision
+    sweep, fault = results["baseline"], results["fault"]
+    pickles = {}
+    for name in names:
+        scene = hard.hard_scene_id(STUDIES_SEED)
+        with open(os.path.join(cells, name, scene, scene), "rb") as f:
+            pickles[name] = pickle.load(f)
+    if not _rows_differ(*pickles.values()):
+        raise AssertionError("ablate: the stale_track_bbox cell's tracks equal the baseline's")
+    big = timed("ablate_big", ablate_big.score, data, cells, list(names), boot=boot)
+    (decision,) = big["decisions"]
+    f1_mv = {name: big["eval"][f"{name}_mv{STUDIES_MIN_VIEWS}"]["f1"] for name in names}
+    if not f1_mv[names[1]] < f1_mv[names[0]]:
+        raise AssertionError(f"ablate: at min_views {STUDIES_MIN_VIEWS} the fault's F1 "
+                             f"{f1_mv[names[1]]} is not below the baseline's {f1_mv[names[0]]}")
+    losses, arm = results["window"]
+    if not (losses == [] and arm["tracks"] > 0 and arm["f1"] > 0):
+        raise AssertionError(f"window_experiment: banked losses {losses}, arm {arm}")
+    report.update(
+        ablate={"cells": [sweep[0], fault], "baseline": f"{sweep[0]['name']}, linked as {names[0]}",
+                "fault_rows_differ": True, f"f1_min_views_{STUDIES_MIN_VIEWS}": f1_mv,
+                "fault_lowers_f1": True},
+        tune_threshold=sweep, ablate_big={"decision": decision},
+        window_experiment={"arm": arm, "banked_losses": losses,
+                           "note": "JAX's quirk: the trainer prints nll, the check parses loss"},
+        seconds=time.perf_counter() - t_phase)
+    return report, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3481,7 +3903,7 @@ def main() -> int:
     for report in dist_reports:
         emit(report)
     paths.update(dist_paths)
-    emit(cli_dist_run(scene_report["f1"]))
+    emit(cli_dist_run())
     tracking_report, paths["tracking"] = tracking_run()
     emit(tracking_report)
     rehearsal_report, paths["tracking_rehearsal"], tracks_pickle = tracking_rehearsal_run()
@@ -3506,6 +3928,9 @@ def main() -> int:
     examples_report, examples_paths = examples_run()
     emit(examples_report)
     paths.update(examples_paths)
+    studies_report, studies_paths = studies_run(scene_report["f1"])
+    emit(studies_report)
+    paths.update(studies_paths)
     for path in ("offline", "scene_parallel_full", "scene_parallel_full_bf16", "scene",
                  "scene_parallel_hard", "cli_scene_parallel", "cli_full", "cli_offline",
                  "train_detector", "eval_association"):     # cli_fast decodes greedily

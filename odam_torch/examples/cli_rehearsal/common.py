@@ -10,6 +10,8 @@ Classes use the detector's 8-class Scan2CAD mapping (mapping/prior.py
 CLASS_MAPPER: 0 display, 1 table, 2 bathtub, 3 trashbin, 4 sofa, 5 chair,
 6 cabinet, 7 bookshelf).
 """
+import os
+
 import numpy as np
 import torch
 
@@ -32,6 +34,26 @@ def box_corners_np(dims, yaw, center):
 def cam_azi_np(T_wc):
     fwd = T_wc[:3, :3] @ np.array([0.0, 0.0, 1.0])
     return float(np.arctan2(fwd[1], fwd[0]))
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__)))))
+# the rehearsal studies' default outputs and generated splits: git-ignored,
+# never under examples/ or artifacts/
+RUNS = os.path.join(REPO, "runs", "cli_rehearsal")
+DATA_HARD = os.path.join(REPO, "examples", "cli_rehearsal", "data_hard")   # committed, read only
+DETR_WEIGHTS = os.path.join(REPO, "artifacts", "torch", "rehearsal_hard_detr.npz")
+ASSOC_WEIGHTS = os.path.join(REPO, "artifacts", "torch", "rehearsal_hard_assoc.npz")
+
+
+
+def load_params(path: str) -> dict:
+    """The Flax tree of rehearsal weights at ``path``: a checkpoint directory
+    of the port's trainer or a ``.npz``."""
+    from ...models import convert
+    from ...utils import checkpoint
+
+    return checkpoint.restore(path)[0] if os.path.isdir(path) else convert.load_flax_npz(path)
+
 
 IMG = 128
 K = np.array([[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]], np.float32)

@@ -24,10 +24,8 @@ import numpy as np
 from PIL import Image
 
 from ...mapping.prior import CLASS_MAPPER
-from .common import IMG, K, SCENES, scene_views
+from .common import IMG, K, REPO, SCENES, scene_views
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__)))))
 SCRATCH_DIRS = ("runs", "chiprun_out", "result")   # the repository's git-ignored outputs
 
 

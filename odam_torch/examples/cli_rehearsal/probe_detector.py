@@ -14,31 +14,23 @@ detector runs with the attention kernels (TinyBackbone, stage 3 at 192x192:
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
 import torch
 
 from .. import resolve
-from ...models import convert, detr as detr_mod
-from ...utils import checkpoint
-from .common import make_detr, norm
+from ...models import detr as detr_mod
+from .common import DETR_WEIGHTS as WEIGHTS, load_params, make_detr, norm
 from .hard import EVAL_SEEDS, hard_scene_views
-
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__)))))
-WEIGHTS = os.path.join(REPO, "artifacts", "torch", "rehearsal_hard_detr.npz")
 
 
 def load_detector(path: str = WEIGHTS, device: str = "cuda") -> detr_mod.DETR:
     """The hard rehearsal DETR with the weights at ``path`` (a checkpoint
     directory or a ``.npz`` Flax tree)."""
     dev = resolve(device)
-    params = (checkpoint.restore(path)[0] if os.path.isdir(path)
-              else convert.load_flax_npz(path))
     return detr_mod.build_detr(make_detr(16, backbone_stage=3, backbone="tiny"),
-                               flax_params=params, device=dev)
+                               flax_params=load_params(path), device=dev)
 
 
 def stats(model: detr_mod.DETR, seeds, phase=0.0, n_frames=16, thresh=0.6,

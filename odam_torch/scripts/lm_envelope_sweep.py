@@ -39,13 +39,14 @@ def _look_at(cam, target):
 
 
 def build_batch(edge_fracs=EDGE_FRACS, aspects=ASPECTS, seeds=SEEDS, n_views: int = 48,
-                noise: float = 1.0, device: str | torch.device = "cpu"):
+                noise: float = 1.0, device: str | torch.device | None = None):
     """All grid cells as one object batch: (solver args on ``device``, the
-    cells, the ground-truth corners [O, 8, 3])."""
+    cells, the ground-truth corners [O, 8, 3]).  ``device`` defaults to the
+    card (:func:`odam_torch.resolve_device`)."""
     from ..mapping import superquadric as sq
     from ..utils import geometry as geo
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
     center = np.array([0.1, -0.2, 0.8])
     angle = 0.35
@@ -94,7 +95,7 @@ def build_batch(edge_fracs=EDGE_FRACS, aspects=ASPECTS, seeds=SEEDS, n_views: in
 
 def run_sweep(n_views: int = 48, n_samples: int = 256, lm_iters: int = 25,
               adam_iters: int = 150, verbose: bool = True,
-              device: str | torch.device = "cpu"):
+              device: str | torch.device | None = None):
     """Both solvers over the grid; returns (rows of (edge_frac, aspect, seed,
     LM IoU, Adam IoU, LM residual, Adam residual), the worst delta a cell,
     the corners within -0.02)."""

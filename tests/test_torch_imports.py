@@ -40,7 +40,11 @@ def test_every_module_imports_without_jax_or_odam_tpu():
         "synthetic_mapping", "fit_superquadric", "train_associator_synthetic",
         "closed_loop.closed_scene", "closed_loop.segment_train", "closed_loop.segment_eval",
         "cli_rehearsal.common", "cli_rehearsal.hard", "cli_rehearsal.analyze_visibility",
-        "cli_rehearsal.make_dataset", "cli_rehearsal.train", "cli_rehearsal.probe_detector")}
+        "cli_rehearsal.make_dataset", "cli_rehearsal.train", "cli_rehearsal.probe_detector",
+        "cli_rehearsal.ci_eval", "cli_rehearsal.tune_min_views", "cli_rehearsal.audit_misses",
+        "cli_rehearsal.diagnose_recall", "cli_rehearsal.ablate", "cli_rehearsal.tune_threshold",
+        "cli_rehearsal.ablate_big", "cli_rehearsal.window_experiment")}
+    required |= {"odam_torch.artifacts", "odam_torch.artifacts.validate"}
     assert required <= set(mods), required - set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -140,7 +140,7 @@ def test_lm_envelope_sweep_matches_jax():
     SWEEP_RESID_ATOL, and the same corners."""
     js = _jax_script("lm_envelope_sweep")
     jargs, jcells, jgts = js.build_batch(n_views=8)
-    targs, tcells, tgts = t_sweep.build_batch(n_views=8)
+    targs, tcells, tgts = t_sweep.build_batch(n_views=8, device="cpu")
     assert tcells == jcells
     np.testing.assert_allclose(tgts, jgts, rtol=0, atol=1e-6)
     for j, t in zip(jargs[0], targs[0]):       # the SQParams of the init
@@ -156,6 +156,16 @@ def test_lm_envelope_sweep_matches_jax():
     np.testing.assert_allclose(got[:, :2], want[:, :2], atol=SWEEP_IOU_ATOL)
     np.testing.assert_allclose(got[:, 2:], want[:, 2:], rtol=0, atol=SWEEP_RESID_ATOL)
     assert tcorners == jcorners
+
+
+def test_lm_envelope_sweep_functions_default_to_the_card(monkeypatch):
+    """``build_batch`` and ``run_sweep`` without a device run on the card:
+    on a host without one they raise ``resolve_device``'s error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, kwargs in ((t_sweep.build_batch, {"n_views": 2}),
+                       (t_sweep.run_sweep, dict(SWEEP, verbose=False))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(**kwargs)
 
 
 # ------------------------------------------------------------- the tools
