@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import geometry as geo
+from ..utils import metrics
 from . import optimizer as adam_opt
 from . import superquadric as sq
 from .optimizer import PRIOR_WEIGHT, VALID_Z, OptimizeResult
@@ -46,6 +47,7 @@ ANCHOR_WEIGHT = 0.1   # translation anchor, x the mean observed box diagonal
 
 # blocking device-to-host reads made by optimize_superquadrics_auto
 HOST_READS = {"fallback_any": 0}
+metrics.register_counters("lm", {"HOST_READS": HOST_READS})
 
 
 def _pack(params: sq.SQParams) -> torch.Tensor:

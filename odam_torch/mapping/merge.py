@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..utils import host_boxes
+from ..utils import host_boxes, metrics
 
 MERGEABLE_GROUPS = [{4, 5}]  # sofa / chair (run_merge.py:107-108)
 MERGE_DISTANCE_THRESHOLD = 0.95
@@ -121,8 +121,10 @@ def merge_tracks(tracks: list[np.ndarray], corners: list[np.ndarray],
     """
     if len(tracks) <= 1:
         return [t for t in tracks if len(t) > 0]
-    cost = merge_cost_matrix(tracks, corners)
-    labels = average_linkage_clusters(cost, threshold)
+    with metrics.span("odam.merge.cost"):
+        cost = merge_cost_matrix(tracks, corners)
+    with metrics.span("odam.merge.linkage"):
+        labels = average_linkage_clusters(cost, threshold)
     merged = []
     for cid in np.unique(labels):
         fused = fuse_cluster(tracks, labels == cid, frame_ids)

@@ -36,11 +36,16 @@ import torch
 from ..parallel import mesh as mesh_mod
 from ..parallel.distributed import all_reduce_sum
 from ..utils import geometry as geo
+from ..utils import metrics
 from . import superquadric as sq
 
 PRIOR_WEIGHT = 20.0
 VALID_Z = 0.5
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+# Adam iterations run by optimize_superquadrics, counted once a call
+COUNTS = {"adam_iterations": 0}
+metrics.register_counters("optim", COUNTS)
 
 
 class OptimizeResult(NamedTuple):
@@ -183,6 +188,7 @@ def optimize_superquadrics(
             mesh, init_params, boxes, box_mask, view_mask, P_cw, optimize_mask, prior_invcov,
             n_iters=n_iters, n_samples=n_samples, representation=representation,
             use_prior=use_prior, lr_pose=lr_pose, lr_shape=lr_shape)
+    COUNTS["adam_iterations"] += n_iters
     scales_init = init_params.scales.detach()
     om = optimize_mask.to(boxes.dtype)
     prior_invcov = prior_invcov if use_prior else None   # a missing table is a zero prior

@@ -37,6 +37,7 @@ from torch import nn
 from .. import resolve_device
 from ..ops import lap, sinkhorn
 from ..ops.attention import mha_core
+from ..utils import metrics
 from . import convert, position
 from .layers import Dense
 
@@ -141,8 +142,12 @@ class Associator(nn.Module):
             det_mask: [B, N] bool validity of detection slots.
             lanes: scenes stacked on the batch axis, which the attention routes on.
         """
-        Z, scores = self.assignment(tracks, track_mask, detections, det_mask, lanes)
-        matches = self._decode(Z, track_mask, det_mask, match_threshold)
+        with metrics.span("odam.gnn"):
+            scores = self.match_scores(tracks, track_mask, detections, det_mask, lanes)
+        with metrics.span("odam.sinkhorn"):
+            Z = self._transport(scores, track_mask, det_mask)
+        with metrics.span("odam.lap"):
+            matches = self._decode(Z, track_mask, det_mask, match_threshold)
         return AssociatorOutput(log_assignment=Z, scores=scores, matches=matches)
 
     def assignment(self, tracks: torch.Tensor, track_mask: torch.Tensor,
@@ -150,6 +155,13 @@ class Associator(nn.Module):
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """The forward without the decode: (log assignment [B, T+1, N+1], raw
         scores [B, T, N]), with no host copy."""
+        scores = self.match_scores(tracks, track_mask, detections, det_mask, lanes)
+        return self._transport(scores, track_mask, det_mask), scores
+
+    def match_scores(self, tracks: torch.Tensor, track_mask: torch.Tensor,
+                     detections: torch.Tensor, det_mask: torch.Tensor, lanes: int = 1
+                     ) -> torch.Tensor:
+        """The encoder and the GNN: the raw scores [B, T, N] before Sinkhorn."""
         c = self.config
         B, T, W, _ = tracks.shape
         D = c.descriptor_dim
@@ -179,11 +191,14 @@ class Associator(nn.Module):
 
         t_feat = self.final_proj(t_feat)
         d_feat = self.final_proj(d_feat)
-        scores = torch.einsum("btd,bnd->btn", t_feat, d_feat).float() / D ** 0.5
-        Z = sinkhorn.log_optimal_transport(scores, self.bin_score.float(),
-                                           iters=c.sinkhorn_iterations,
-                                           row_mask=track_mask, col_mask=det_mask)
-        return Z, scores
+        return torch.einsum("btd,bnd->btn", t_feat, d_feat).float() / D ** 0.5
+
+    def _transport(self, scores: torch.Tensor, track_mask: torch.Tensor,
+                   det_mask: torch.Tensor) -> torch.Tensor:
+        """Sinkhorn with the dustbin: the log assignment [B, T+1, N+1]."""
+        return sinkhorn.log_optimal_transport(scores, self.bin_score.float(),
+                                              iters=self.config.sinkhorn_iterations,
+                                              row_mask=track_mask, col_mask=det_mask)
 
     def _decode(self, Z, track_mask, det_mask, threshold: float) -> torch.Tensor:
         decode = lap.greedy_peel_match if self.config.decode == "greedy" else lap.match_by_score

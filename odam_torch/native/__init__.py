@@ -17,10 +17,12 @@ from pathlib import Path
 import numpy as np
 
 from ..ops import build
+from ..utils import metrics
 
 SOURCES = (Path(__file__).with_name("sq_sampler.cpp"),)
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 BUILD_INFO: dict = {}
+metrics.register_info("build", {"native": BUILD_INFO})
 _lock = threading.Lock()
 _lib = None
 

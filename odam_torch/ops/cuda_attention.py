@@ -47,6 +47,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import metrics
 from . import build
 
 NEG_INF = -1e9
@@ -78,6 +79,13 @@ def reset_counts() -> None:
                 by_dtype[dtype] = 0
     for by_batch in LAUNCHES_BY_BATCH.values():
         by_batch.clear()
+
+
+metrics.register_counters("attention", {
+    "LAUNCHES": LAUNCHES, "PLAIN_CALLS": PLAIN_CALLS, "LAUNCHES_BY_DTYPE": LAUNCHES_BY_DTYPE,
+    "PLAIN_CALLS_BY_DTYPE": PLAIN_CALLS_BY_DTYPE, "LAUNCHES_BY_BATCH": LAUNCHES_BY_BATCH,
+    "ALIGN_COPIES": ALIGN_COPIES}, reset_counts)
+metrics.register_info("build", {"attention": BUILD_INFO})
 
 
 def _dtype_name(x: torch.Tensor) -> str:

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import metrics
 from . import build
 
 _BIG_COST = 1e6
@@ -52,6 +53,11 @@ def reset_counts() -> None:
     PLAIN_CALLS["lap_solve"] = 0
     for route in ROUTE_LAUNCHES:
         ROUTE_LAUNCHES[route] = 0
+
+
+metrics.register_counters("lap", {"LAUNCHES": LAUNCHES, "ROUTE_LAUNCHES": ROUTE_LAUNCHES,
+                                  "PLAIN_CALLS": PLAIN_CALLS}, reset_counts)
+metrics.register_info("build", {"lap": BUILD_INFO})
 
 
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -33,6 +33,7 @@ mid-scene as a pickle of numpy arrays, which either package can write.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
@@ -44,7 +45,6 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from torch.func import vmap
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..data.loader import to_device
@@ -57,6 +57,7 @@ from ..models.associator import Associator
 from ..models.detr import DETR
 from ..utils import boxes as box_ops
 from ..utils import geometry as geo
+from ..utils import metrics
 from . import tracker
 
 
@@ -209,18 +210,21 @@ def update_tracks(cfg: PipelineConfig, associator: Associator, store: tracker.Tr
     associator runs and unmatched detections are gated on the dustbin row.
     Slots matched this frame are protected from eviction.
     """
-    if not has_tracks:
-        store, slots, ok = _spawn(store, det_valid)
-    else:
-        with record_function("odam.track_inputs"):
+    if has_tracks:
+        with metrics.span("odam.track_inputs"):
             tracks79 = prepare_track_inputs(store, T_wc, K, img_w, img_h,
                                             cfg.track_bbox_samples, cfg.track_bbox_mode)
-        with record_function("odam.associator"):
+        with metrics.span("odam.associator"):
             out = associator(tracks79[None], store.active[None], det79[None],
                              det_valid[None], cfg.match_threshold)
-        store, slots, ok = _attach(cfg, store, out.log_assignment[0], out.matches[0], det_valid)
-    store = tracker.append_rows(store, det82, slots, ok)
-    return store, tracker.log_frame(log, det82, _attached_ids(store, slots, ok))
+    with metrics.span("odam.store_update"):
+        if has_tracks:
+            store, slots, ok = _attach(cfg, store, out.log_assignment[0], out.matches[0],
+                                       det_valid)
+        else:
+            store, slots, ok = _spawn(store, det_valid)
+        store = tracker.append_rows(store, det82, slots, ok)
+        return store, tracker.log_frame(log, det82, _attached_ids(store, slots, ok))
 
 
 def _spawn(store: tracker.TrackStore, det_valid: torch.Tensor
@@ -267,9 +271,9 @@ def detect_frame(cfg: PipelineConfig, detr: DETR, images: torch.Tensor, K: torch
     """DETR forward and postprocess on normalized [B, H, W, 3] frames; K is
     [3, 3] or one per frame, [B, 3, 3]; ``lanes`` and ``shards`` as in
     ``DETR.forward``."""
-    with record_function("odam.detr"):
+    with metrics.span("odam.detr"):
         outputs = detr(images, lanes=lanes, shards=shards)
-    with record_function("odam.postprocess"):
+    with metrics.span("odam.postprocess"):
         return detr_mod.postprocess(outputs, img_w, img_h, cfg.detect_threshold, K,
                                     max_dets=cfg.max_dets)
 
@@ -283,11 +287,11 @@ def track_step(cfg: PipelineConfig, associator: Associator, store: tracker.Track
     ``has_tracks`` is asked only after the row assembly is queued, so a wait
     it makes overlaps the work before it.
     """
-    with record_function("odam.postprocess"):
+    with metrics.span("odam.postprocess"):
         det_valid = dets.valid[0]
         det79 = detection_rows_camera(dets, frame_id, img_w, img_h)
         det82 = lift_rows_to_world(det79, det_valid, T_wc, img_w, img_h, cfg.no_code)
-    with record_function("odam.track_update"):
+    with metrics.span("odam.track_update"):
         store, log = update_tracks(cfg, associator, store, log, det79, det82, det_valid,
                                    T_wc, K, img_w, img_h, has_tracks())
     return FrameResult(store=store, log=log, n_detections=det_valid.sum().to(torch.int32))
@@ -299,9 +303,11 @@ def frame_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
                     img_h: float, has_tracks: Callable[[], bool]) -> FrameResult:
     """One step on a normalized [H, W, 3] frame (in the model's dtype).
 
-    The ``record_function`` ranges ("odam.*") name the step's stages in a
-    torch.profiler trace (``chip_smoke.py --profile`` reads them); they cost
-    about a microsecond each when no profiler runs.
+    The spans ("odam.*", :func:`odam_torch.utils.metrics.span`) name the
+    step's stages: ranges in a torch.profiler trace (``chip_smoke.py
+    --profile`` and ``bench_h100`` read them), host times under
+    ``metrics.enable()``.  With neither, a span checks two flags and records
+    nothing: no clock read and no ``record_function`` call.
     """
     dets = detect_frame(cfg, detr, image[None], K, img_w, img_h)
     return track_step(cfg, associator, store, log, dets, frame_id, T_wc, K, img_w, img_h,
@@ -351,20 +357,22 @@ def update_tracks_lanes(cfg: PipelineConfig, associator: Associator,
     every lane, each lane takes its association branch if its store holds a
     track and its spawn branch if not, and a lane whose ``valid`` is unset
     (a padded frame) keeps its store and log as they were."""
-    with record_function("odam.track_inputs"):
+    with metrics.span("odam.track_inputs"):
         tracks79 = prepare_track_inputs_lanes(stores, T_wcs, Ks, img_w, img_h,
                                               cfg.track_bbox_samples, cfg.track_bbox_mode)
-    with record_function("odam.associator"):
+    with metrics.span("odam.associator"):
         out = associator(tracks79, stores.active, det79, det_valid, cfg.match_threshold,
                          lanes=det79.shape[0])
-    attached = vmap(partial(_attach, cfg))(stores, out.log_assignment, out.matches, det_valid)
-    spawned = vmap(_spawn)(stores, det_valid)
-    has_tracks = stores.count > 0
-    store, slots, ok = (_where_lanes(has_tracks, a, b) for a, b in zip(attached, spawned))
-    store = tracker.append_rows_lanes(store, det82, slots, ok)
-    ids = vmap(_attached_ids)(store, slots, ok)
-    return (_where_lanes(valid, store, stores),
-            tracker.log_frame_lanes(logs, det82, ids, valid))
+    with metrics.span("odam.store_update"):
+        attached = vmap(partial(_attach, cfg))(stores, out.log_assignment, out.matches,
+                                               det_valid)
+        spawned = vmap(_spawn)(stores, det_valid)
+        has_tracks = stores.count > 0
+        store, slots, ok = (_where_lanes(has_tracks, a, b) for a, b in zip(attached, spawned))
+        store = tracker.append_rows_lanes(store, det82, slots, ok)
+        ids = vmap(_attached_ids)(store, slots, ok)
+        return (_where_lanes(valid, store, stores),
+                tracker.log_frame_lanes(logs, det82, ids, valid))
 
 
 def lane_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
@@ -378,11 +386,11 @@ def lane_step_body(cfg: PipelineConfig, detr: DETR, associator: Associator,
     (``valid`` unset) keeps its store and log and counts 0 detections."""
     P = images.shape[0]
     dets = detect_frame(cfg, detr, images, Ks, img_w, img_h, lanes=P)
-    with record_function("odam.postprocess"):
+    with metrics.span("odam.postprocess"):
         det_valid = dets.valid
         det79 = detection_rows_camera_lanes(dets, frame_ids, img_w, img_h)
         det82 = lift_rows_to_world_lanes(det79, det_valid, T_wcs, img_w, img_h, cfg.no_code)
-    with record_function("odam.track_update"):
+    with metrics.span("odam.track_update"):
         store, log = update_tracks_lanes(cfg, associator, stores, logs, det79, det82,
                                          det_valid, T_wcs, Ks, img_w, img_h, valid)
     n_detections = torch.where(valid, det_valid.sum(dim=-1), 0).to(torch.int32)
@@ -408,6 +416,10 @@ def device_images(images, device: torch.device, mean: torch.Tensor, std: torch.T
     if size is not None and tuple(img.shape[-3:-1]) != tuple(size):
         img = resize_bilinear_device(img, *size)
     return img.to(dtype)
+
+
+# the id of each sequence: the request its spans serve (utils.metrics.span)
+_SEQUENCE_IDS = itertools.count(1)
 
 
 class OdamPipeline:
@@ -438,6 +450,7 @@ class OdamPipeline:
         cfg, dev = self.cfg, self.device
         K = np.asarray(K, np.float32)
         self.sequence = {
+            "id": next(_SEQUENCE_IDS),
             "K": K,
             "K_dev": torch.from_numpy(np.ascontiguousarray(K[:3, :3])).to(dev),
             "img_h": float(img_h),
@@ -510,14 +523,20 @@ class OdamPipeline:
         of uint8; with ``resize_on_device`` it may have any size.  Queues the
         step without waiting for it, apart from the waits counted in
         ``host_syncs``."""
-        T_wc = self._record_frame(frame_id, T_wc)
-        seq = self.sequence
-        with torch.no_grad():
-            result = frame_step_body(
-                self.cfg, self.detr, self.associator, seq["store"], seq["log"],
-                self._normalized_image(image), float(frame_id), to_device(T_wc, self.device),
-                seq["K_dev"], seq["img_w"], seq["img_h"], self._has_tracks)
-        return self._finish_frame(result)
+        with metrics.span("odam.step", self._sequence_id()):
+            T_wc = self._record_frame(frame_id, T_wc)
+            seq = self.sequence
+            with torch.no_grad():
+                with metrics.span("odam.transport"):
+                    image, T_wc = self._normalized_image(image), to_device(T_wc, self.device)
+                result = frame_step_body(
+                    self.cfg, self.detr, self.associator, seq["store"], seq["log"], image,
+                    float(frame_id), T_wc, seq["K_dev"], seq["img_w"], seq["img_h"],
+                    self._has_tracks)
+            return self._finish_frame(result)
+
+    def _sequence_id(self) -> int | None:
+        return None if self.sequence is None else self.sequence.get("id")
 
     def _drain_log_chunk(self) -> None:
         """Pull the device log into the host history and reset it (triggered
@@ -566,35 +585,44 @@ class OdamPipeline:
         parameters (``quadrics``, SQParams of numpy arrays), all numpy, and
         the solve's per-iteration ``loss_log``.
         """
+        with metrics.span("odam.optim", self._sequence_id()):
+            return self._optim_process(tracks)
+
+    def _optim_process(self, tracks: list[np.ndarray]) -> dict:
         seq, cfg, dev = self.sequence, self.cfg, self.device
         if cfg.optim_solver not in ("adam", "lm"):
             raise ValueError(f"unknown optim_solver {cfg.optim_solver!r}: 'adam' or 'lm'")
-        sc = constraints.build_scene_constraints(
-            tracks, np.asarray(seq["usable_frames"]), np.asarray(seq["P_cws"]),
-            seq["img_h"], seq["img_w"], cfg.max_objs, cfg.max_views, cfg.min_views,
-            robust_init=cfg.robust_init)
+        with metrics.span("odam.optim.constraints"):
+            sc = constraints.build_scene_constraints(
+                tracks, np.asarray(seq["usable_frames"]), np.asarray(seq["P_cws"]),
+                seq["img_h"], seq["img_w"], cfg.max_objs, cfg.max_views, cfg.min_views,
+                robust_init=cfg.robust_init)
 
         def on_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        init = sq.init_params(on_dev(sc.init_translate), on_dev(sc.init_angle),
-                              on_dev(sc.init_dims), cfg.representation)
-        solver_args = (init, on_dev(sc.boxes), on_dev(sc.box_mask), on_dev(sc.view_mask),
-                       on_dev(sc.P_cw), on_dev(sc.optimize_mask),
-                       on_dev(prior.prior_invcov_for_classes(sc.obj_class)))
-        if cfg.optim_solver == "lm":
-            # LM for the objects inside its envelope, Adam for the rest
-            res = lm_solver.optimize_superquadrics_auto(
-                *solver_args, n_iters=min(cfg.optim_iters, 40), n_samples=cfg.optim_samples,
-                adam_iters=cfg.optim_iters, representation=cfg.representation,
-                use_prior=cfg.use_prior)
-        else:
-            res = optimizer.optimize_superquadrics(
-                *solver_args, n_iters=cfg.optim_iters, n_samples=cfg.optim_samples,
-                representation=cfg.representation, use_prior=cfg.use_prior)
+        with metrics.span("odam.optim.upload"):
+            init = sq.init_params(on_dev(sc.init_translate), on_dev(sc.init_angle),
+                                  on_dev(sc.init_dims), cfg.representation)
+            solver_args = (init, on_dev(sc.boxes), on_dev(sc.box_mask), on_dev(sc.view_mask),
+                           on_dev(sc.P_cw), on_dev(sc.optimize_mask),
+                           on_dev(prior.prior_invcov_for_classes(sc.obj_class)))
+        # the solve only queues work (the LM route's one host read apart)
+        with metrics.span("odam.optim.solve"):
+            if cfg.optim_solver == "lm":
+                # LM for the objects inside its envelope, Adam for the rest
+                res = lm_solver.optimize_superquadrics_auto(
+                    *solver_args, n_iters=min(cfg.optim_iters, 40),
+                    n_samples=cfg.optim_samples, adam_iters=cfg.optim_iters,
+                    representation=cfg.representation, use_prior=cfg.use_prior)
+            else:
+                res = optimizer.optimize_superquadrics(
+                    *solver_args, n_iters=cfg.optim_iters, n_samples=cfg.optim_samples,
+                    representation=cfg.representation, use_prior=cfg.use_prior)
         # the host's first read waits for the solve; the rest are copies
-        host = [t.cpu().numpy() for t in (res.corners, res.corners_detector, res.loss_log,
-                                          *res.params)]
+        with metrics.span("odam.optim.readback"):
+            host = [t.cpu().numpy() for t in (res.corners, res.corners_detector, res.loss_log,
+                                              *res.params)]
         corners, corners_dl, loss_log, params = host[0], host[1], host[2], host[3:]
         n_objs = int(sc.obj_valid.sum())
         # back to input track order (the constraints sort longest first)
@@ -616,8 +644,9 @@ class OdamPipeline:
 
     def merge_process(self, data: dict) -> list[np.ndarray]:
         """Fuse fragmented tracks by the overlap of their optimized boxes."""
-        return merge.merge_tracks(data["tracks"], data["bboxes_qc"],
-                                  np.asarray(self.sequence["usable_frames"]))
+        with metrics.span("odam.merge", self._sequence_id()):
+            return merge.merge_tracks(data["tracks"], data["bboxes_qc"],
+                                      np.asarray(self.sequence["usable_frames"]))
 
     # ---------------------------------------------------------- checkpoints
     def save_sequence_state(self, path: str) -> None:

@@ -39,6 +39,7 @@ from ..data.loader import to_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..parallel import distributed
 from ..parallel import mesh as mesh_mod
+from ..utils import metrics
 from . import processor as proc_mod
 from . import tracker
 
@@ -64,6 +65,7 @@ class SceneParallelRunner:
         self.cfg = cfg
         self.n_lanes = int(n_lanes)
         self.lanes = self.n_lanes // d            # this rank's lanes
+        self.n_steps = 0                          # steps run: the id of a step's spans
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
@@ -75,10 +77,12 @@ class SceneParallelRunner:
         of (frame id, T_wc row-major, valid), copied to the device at once."""
         dev = self.device
         P = self.lanes
-        meta = to_device(np.ascontiguousarray(meta, np.float32), dev)
-        with torch.no_grad():
-            imgs = proc_mod.device_images(images, dev, self._mean, self._std,
-                                          self.detr.config.dtype)
+        self.n_steps += 1
+        with metrics.span("odam.step", self.n_steps), torch.no_grad():
+            with metrics.span("odam.transport"):
+                meta = to_device(np.ascontiguousarray(meta, np.float32), dev)
+                imgs = proc_mod.device_images(images, dev, self._mean, self._std,
+                                              self.detr.config.dtype)
             return proc_mod.lane_step_body(
                 self.cfg, self.detr, self.associator, stores, logs, imgs, meta[:, 0],
                 meta[:, 1:17].reshape(P, 4, 4), Ks, float(img_w), float(img_h),
