@@ -19,6 +19,16 @@ out in optax's order of operations (``torch.optim.Adam`` rounds
 differently, and 200 steps amplify that).  The iterations make no host
 sync: the loss of each is kept on the device and copied once at the end.
 
+One iteration reads and writes fixed tensors (:class:`StaticSolve`: the
+inputs, the parameters, Adam's moments, its step count as a 0-dim float32
+tensor, the latest loss), so on a CUDA device it is captured once in a
+CUDA graph and replayed for every iteration: the host issues one launch an
+iteration instead of ~570.  The graphs are kept by what they bake in (the
+device, the inputs' shapes and dtypes, the representation, whether the
+prior is present, ``n_samples``, the learning rates and ``solve_step``),
+the latest ``GRAPH_CACHE`` of them.  On the CPU the same iteration runs in
+a Python loop.
+
 With an ``mp`` mesh (:mod:`odam_torch.parallel.mesh`) the object axis is
 sharded over the ranks, as JAX shards it (``__graft_entry__.py``'s stage
 3): it is padded to a multiple of the ranks with copies of the last object,
@@ -28,6 +38,8 @@ this is the one-process solve.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -43,9 +55,15 @@ PRIOR_WEIGHT = 20.0
 VALID_Z = 0.5
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
-# Adam iterations run by optimize_superquadrics, counted once a call
-COUNTS = {"adam_iterations": 0}
+# Adam iterations run by optimize_superquadrics, counted once a call; the
+# CUDA graphs of an iteration captured, and the iterations replayed from one
+COUNTS = {"adam_iterations": 0, "graph_captures": 0, "graph_iterations": 0}
 metrics.register_counters("optim", COUNTS)
+
+GRAPH_WARMUP = 2      # eager iterations on a side stream before a capture
+GRAPH_CACHE = 4       # captured solves kept (~1.6 GiB each at 64 x 256 x 1000)
+_GRAPHS: OrderedDict[tuple, "StaticSolve"] = OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
 
 
 class OptimizeResult(NamedTuple):
@@ -101,7 +119,7 @@ class AdamState(NamedTuple):
 
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
-    count: int
+    count: int | torch.Tensor        # an int, or a 0-dim float32 tensor on the device
 
 
 def _trained_leaves(representation: str) -> tuple[int, ...]:
@@ -123,8 +141,10 @@ def solve_step(params: sq.SQParams, state: AdamState, boxes: torch.Tensor,
     """One iteration: the loss at ``params``, its gradient with NaNs zeroed,
     and optax's Adam update (mu and nu in optax's order, bias corrections
     1 - b**t in float32, then ``p + (-lr) * mu_hat / (sqrt(nu_hat) + eps)``).
-    ``prior_invcov=None`` leaves the prior out.  Returns (params, state,
-    loss before the update)."""
+    ``prior_invcov=None`` leaves the prior out.  A tensor ``state.count``
+    gives t as ``count + 1`` on the device (the same float32 value as an
+    int count's) and comes back as t.  Returns (params, state, loss before
+    the update)."""
     trained = _trained_leaves(representation)
     leaves = [p.detach().requires_grad_(i in trained) for i, p in enumerate(params)]
     cur = sq.SQParams(*leaves)
@@ -134,7 +154,10 @@ def solve_step(params: sq.SQParams, state: AdamState, boxes: torch.Tensor,
             per_obj = per_obj + PRIOR_WEIGHT * prior_loss(cur, scales_init, prior_invcov)
         loss = (per_obj * om).sum()
         grads = torch.autograd.grad(loss, [leaves[i] for i in trained])
-    t = torch.full((), float(state.count + 1), device=boxes.device)
+    if isinstance(state.count, torch.Tensor):
+        t = count = state.count + 1
+    else:
+        t, count = torch.full((), float(state.count + 1), device=boxes.device), state.count + 1
     c1 = 1 - torch.pow(torch.full((), ADAM_B1, device=boxes.device), t)
     c2 = 1 - torch.pow(torch.full((), ADAM_B2, device=boxes.device), t)
     new = [p.detach() for p in leaves]
@@ -148,7 +171,96 @@ def solve_step(params: sq.SQParams, state: AdamState, boxes: torch.Tensor,
             new[i] = new[i] + (-lr) * ((mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS))
             mus.append(mu)
             nus.append(nu)
-    return sq.SQParams(*new), AdamState(mus, nus, state.count + 1), loss.detach()
+    return sq.SQParams(*new), AdamState(mus, nus, count), loss.detach()
+
+
+class StaticSolve:
+    """A solve in fixed tensors: its inputs (boxes, box_mask, view_mask,
+    P_cw, om, scales_init, prior_invcov or None), the parameters, Adam's
+    moments, the step count (a 0-dim float32 tensor) and the latest loss.
+    :meth:`iteration` runs ``solve_step`` on them and writes its results
+    back in place; ``graph`` is that iteration captured on a CUDA device."""
+
+    def __init__(self, init_params: sq.SQParams, inputs: tuple, n_samples: int,
+                 representation: str, lr_pose: float, lr_shape: float):
+        self.inputs = [None if t is None else torch.empty_like(t) for t in inputs]
+        self.params = sq.SQParams(*[torch.empty_like(t) for t in init_params])
+        self.mu, self.nu, _ = init_adam(self.params, representation)
+        dev = inputs[0].device
+        self.count = torch.zeros((), dtype=torch.float32, device=dev)
+        self.loss = torch.zeros((), dtype=inputs[0].dtype, device=dev)
+        self.config = (n_samples, representation, lr_pose, lr_shape)
+        self.trained = _trained_leaves(representation)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.load(init_params, inputs)
+
+    def load(self, init_params: sq.SQParams, inputs: tuple) -> None:
+        """Start a solve from ``init_params`` on ``inputs`` (copied in)."""
+        with torch.no_grad():
+            for dst, src in zip(self.inputs + list(self.params), inputs + tuple(init_params)):
+                if dst is not None:
+                    dst.copy_(src)
+            for m in self.mu + self.nu:
+                m.zero_()
+            self.count.zero_()
+
+    def iteration(self) -> None:
+        """One Adam iteration from the tensors' values, written back into them."""
+        params, state, loss = solve_step(self.params, AdamState(self.mu, self.nu, self.count),
+                                         *self.inputs, *self.config)
+        with torch.no_grad():
+            for i in self.trained:
+                self.params[i].copy_(params[i])
+            for dst, src in zip(self.mu + self.nu, state.mu + state.nu):
+                dst.copy_(src)
+            self.count.copy_(state.count)
+            self.loss.copy_(loss)
+
+    def run(self, n_iters: int, loss_log: torch.Tensor) -> None:
+        """``n_iters`` iterations, the loss of each into ``loss_log``: on the
+        CPU one call of :meth:`iteration` each; on a CUDA device replays of
+        ``graph``, captured on the first solve of more than GRAPH_WARMUP
+        iterations after that many real ones run on a side stream, as
+        PyTorch captures a backward pass."""
+        done = 0
+        if self.graph is None and self.count.is_cuda and n_iters > GRAPH_WARMUP:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for done in range(1, GRAPH_WARMUP + 1):
+                    self.iteration()
+                    loss_log[done - 1].copy_(self.loss)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.iteration()
+            self.graph = graph
+            COUNTS["graph_captures"] += 1
+        for i in range(done, n_iters):
+            if self.graph is None:
+                self.iteration()
+            else:
+                self.graph.replay()
+            loss_log[i].copy_(self.loss)
+        if self.graph is not None:
+            COUNTS["graph_iterations"] += n_iters - done
+
+
+def _cached_solve(init_params: sq.SQParams, inputs: tuple, *config) -> StaticSolve:
+    """The cached :class:`StaticSolve` of what its graph bakes in, loaded
+    with these inputs, or a new one (the least recently used dropped past
+    GRAPH_CACHE).  Call under ``_GRAPHS_LOCK``."""
+    key = (inputs[0].device, config, solve_step,
+           tuple(None if t is None else (t.shape, t.dtype) for t in inputs + tuple(init_params)))
+    s = _GRAPHS.pop(key, None)
+    if s is None:
+        s = StaticSolve(init_params, inputs, *config)
+    else:
+        s.load(init_params, inputs)
+    _GRAPHS[key] = s
+    while len(_GRAPHS) > GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)
+    return s
 
 
 def optimize_superquadrics(
@@ -192,20 +304,26 @@ def optimize_superquadrics(
     scales_init = init_params.scales.detach()
     om = optimize_mask.to(boxes.dtype)
     prior_invcov = prior_invcov if use_prior else None   # a missing table is a zero prior
-    params = sq.SQParams(*[t.detach() for t in init_params])
-    state = init_adam(params, representation)
-    losses = []
-    for _ in range(n_iters):
-        params, state, loss = solve_step(
-            params, state, boxes, box_mask, view_mask, P_cw, om, scales_init,
-            prior_invcov, n_samples, representation, lr_pose, lr_shape)
-        losses.append(loss)
-    loss_log = torch.stack(losses) if losses else torch.zeros(0, device=boxes.device)
+    inputs = (boxes, box_mask, view_mask, P_cw, om, scales_init, prior_invcov)
+    config = (n_samples, representation, lr_pose, lr_shape)
+    # before the solve: box3d_corners' copy of its corner signs to the device
+    # waits for the stream, so after it the host would wait for the whole solve
+    with torch.no_grad():
+        dims_init = 2.0 * scales_init ** 2        # invert scales = sqrt(dims / 2)
+        corners_det = geo.box3d_corners(dims_init, init_params.angle, init_params.translate)
+    loss_log = torch.empty(n_iters, dtype=boxes.dtype, device=boxes.device)
+    if boxes.is_cuda:
+        with _GRAPHS_LOCK, torch.cuda.device(boxes.device):
+            s = _cached_solve(init_params, inputs, *config)
+            s.run(n_iters, loss_log)
+            params = sq.SQParams(*[t.clone() for t in s.params])
+    else:
+        s = StaticSolve(init_params, inputs, *config)
+        s.run(n_iters, loss_log)
+        params = s.params
 
     with torch.no_grad():
         corners = sq.oriented_box_corners(params, n_samples)
-        dims_init = 2.0 * scales_init ** 2        # invert scales = sqrt(dims / 2)
-        corners_det = geo.box3d_corners(dims_init, init_params.angle, init_params.translate)
         corners = torch.where(optimize_mask[:, None, None], corners, corners_det)
     return OptimizeResult(params=params, loss_log=loss_log, corners=corners,
                           corners_detector=corners_det)

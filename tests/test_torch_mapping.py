@@ -451,6 +451,38 @@ def test_solve_step_matches_optax(rep, use_prior):
 
 
 @pytest.mark.parametrize("rep,use_prior", CASES)
+def test_static_solve_matches_int_count_loop(rep, use_prior):
+    """The iteration that the card captures in a CUDA graph
+    (``StaticSolve``: fixed tensors, the Adam count a 0-dim float32 tensor
+    that the iteration increments), run through its CPU loop for all 200
+    iterations, against ``solve_step`` in a plain loop with int counts from
+    the same start: the loss log, the final params and Adam's moments
+    bit-equal, and the bias corrections of the 200th iteration (t = the
+    count the body ends on) equal to 1 - b**200 computed as the int count
+    computes them."""
+    init, inputs = solve_scene()
+    boxes, box_mask, view_mask, P_cw, om, invcov = (T(a) for a in inputs)
+    p0 = t_sq.init_params(*map(T, init), rep)
+    args = (boxes, box_mask, view_mask, P_cw, om.float(), p0.scales,
+            invcov if use_prior else None)
+    solve, log = t_opt.StaticSolve(p0, args, S, rep, 0.01, 0.1), torch.empty(ITERS)
+    solve.run(ITERS, log)
+    params, state, losses = p0, t_opt.init_adam(p0, rep), []
+    for _ in range(ITERS):
+        params, state, loss = t_opt.solve_step(params, state, *args, S, rep)
+        losses.append(loss)
+    assert torch.equal(log, torch.stack(losses))
+    for name, a, b in zip(t_sq.SQParams._fields, solve.params, params):
+        assert torch.equal(a, b), name
+    for a, b in zip(solve.mu + solve.nu, state.mu + state.nu):
+        assert torch.equal(a, b)
+    assert state.count == ITERS and solve.count.dtype == torch.float32
+    for b in (t_opt.ADAM_B1, t_opt.ADAM_B2):
+        old = 1 - torch.pow(torch.full((), b), torch.full((), float(ITERS)))
+        assert torch.equal(1 - torch.pow(torch.full((), b), solve.count), old)
+
+
+@pytest.mark.parametrize("rep,use_prior", CASES)
 def test_optimize_superquadrics_matches(rep, use_prior):
     """Whole 200-iteration solves, each package on its own trajectory.
 
