@@ -31,6 +31,12 @@ Phases, each printed as one JSON line on stdout:
    case on the route lap.plan names, device time from a CUDA graph beside
    the shared route's kernel at the same case and the host path's (copy +
    host solve), the plain solver's sweeps and ns a sweep;
+   msda_checks: the MSDA kernel (odam_torch/csrc/msda.cu) against its plain
+   version at the deformable benchmark cell's shapes (B = 16 over its four
+   levels; the encoder, every token a query, and the decoder's
+   cross-attention, 300 queries; f32 and bf16 values): within
+   ``msda_bar``, which the plain version with bf16 locations must fail;
+   device time from a CUDA graph, the plain version's, the bound;
 4. modules: the full-width DETR on one 800x1071 frame and the full-width
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
@@ -56,6 +62,15 @@ Phases, each printed as one JSON line on stdout:
    frames/s, step and lane-frame times, launches a step (profiled), host
    syncs (none from step 2 on), one LAP launch a step, peak memory, and
    both kernels' launches at B = P;
+   deformable_lanes: Deformable DETR (odam_torch/configs/
+   deformable_detr_scan_net.yaml, seeded) through SceneParallelRunner at 16
+   lanes of 4 frames, f32 with the kernels, f32 on the plain route, bf16:
+   the MSDA counters zeroed before each run, 12 calls a step (launches of
+   the run's dtype, or plain calls), the samples they took, one LAP launch
+   a step, flash and fused launched; the f32 kernel run's lanes equal to
+   the plain run's (detections and ids exact, rows within 1e-3).  No other
+   path launches the MSDA kernel (its count is checked before this phase
+   and at the end);
 9. mapping: optim_process -> merge_process -> optim_process at the default
    PipelineConfig (64 objects x 256 views x 1000 samples x 200 iterations)
    on a synthetic scene of 64 ground-truth boxes and 256 cameras at
@@ -691,6 +706,133 @@ def lap_checks() -> tuple[dict, list[dict]]:
               "routes": {r["case"]: [r["lap_route"], r["K"]] for r in rows},
               "host_path_ms": {r["case"]: r["plain_ms"] for r in rows}}
     return report, rows
+
+
+# --------------------------------------------------------------------- msda
+
+MSDA_SOURCE = "odam_torch/csrc/msda.cu"
+# the deformable cell's levels at 800x1071: C3, C4, C5 and the stride-2 conv on C5
+MSDA_LEVELS = ((100, 134), (50, 67), (25, 34), (13, 17))
+MSDA_HEADS, MSDA_DH, MSDA_POINTS = 8, 32, 4
+MSDA_CASES = {"encoder": None, "decoder_cross": 300}     # queries: every token, or 300
+MSDA_BATCH = 16                   # the deformable cell's lanes
+MSDA_LAYERS = 6                   # MSDA calls of the encoder, and of the decoder
+# The MSDA kernel's products run off the tensor cores: float32 FMA at 67 TFLOP/s.
+F32_SIMT_FLOPS = 67e12
+MSDA_BOUND_RATE = "bytes over 3.35 TB/s, or float32 FLOP over 67 TFLOP/s (no tensor core)"
+
+
+def msda_levels(img_h: int, img_w: int) -> list[tuple[int, int]]:
+    """Deformable DETR's four levels of an image: strides 8, 16, 32 and 64,
+    each stride-2 layer rounding up."""
+    h, w = img_h, img_w
+    for _ in range(3):
+        h, w = -(-h // 2), -(-w // 2)
+    levels = []
+    for _ in range(4):
+        levels.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    return levels
+
+
+def msda_inputs(batch: int, queries: int | None, dtype: torch.dtype, dev: torch.device,
+                levels=MSDA_LEVELS, seed: int = 0):
+    """Seeded MSDA inputs as the model makes them: (value, shapes, starts,
+    locations, weights).  Values normal; reference points uniform in the
+    frame, offsets of a few pixels (some samples off the map); softmaxed
+    weights.  ``queries`` None: every token a query (the encoder)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = sum(h * w for h, w in levels)
+    Lq = S if queries is None else queries
+    L = len(levels)
+    value = torch.randn(batch, S, MSDA_HEADS, MSDA_DH, generator=g, device=dev).to(dtype)
+    ref = torch.rand(batch, Lq, 1, 1, 1, 2, generator=g, device=dev)
+    sizes = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=dev)
+    offsets = 3.0 * torch.randn(batch, Lq, MSDA_HEADS, L, MSDA_POINTS, 2, generator=g,
+                                device=dev)
+    locations = ref + offsets / sizes[:, None, :]
+    weights = torch.softmax(torch.randn(batch, Lq, MSDA_HEADS, L * MSDA_POINTS, generator=g,
+                                        device=dev), -1).view(batch, Lq, MSDA_HEADS, L,
+                                                              MSDA_POINTS)
+    starts = tuple(sum(h * w for h, w in levels[:i]) for i in range(L))
+    return value, tuple(levels), starts, locations, weights
+
+
+def msda_bar(want: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor, dict]:
+    """The wrapper's bar against the plain version, for each output: float32
+    within 1e-5 of the largest (the sum's order, and ``grid_sample``'s pixel
+    ((2 loc - 1) + 1) w / 2 - 0.5 rounds apart from the kernel's loc w -
+    0.5 by ~1e-7 of it); bfloat16 within one unit in the last place (2^-7
+    of the output, as both round a float32 sum once) plus the float32 bar
+    (for outputs near 0)."""
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        return torch.full_like(want, 1e-5 * scale), {"atol": 1e-5 * scale,
+                                                     "rule": "1e-5 x max|plain|"}
+    return 2.0 ** -7 * want.abs() + 1e-5 * scale, {
+        "rule": "2^-7 x |plain| + 1e-5 x max|plain|, each output"}
+
+
+def msda_checks() -> tuple[list[dict], int]:
+    """The MSDA wrapper (``ms_deform_attn_kernel``) at the deformable cell's
+    shapes, B = 16 over its four levels: the encoder (every token a query)
+    and the decoder's cross-attention (300 queries), f32 and bf16 values,
+    held to :func:`~odam_torch.ops.msda.ms_deform_attn_plain` by
+    :func:`msda_bar`.  The plain version with its locations rounded to
+    bfloat16 must fail the same bar: the bar sees the precision the
+    module's contract keeps out (float32 locations).  Device time a call
+    from a CUDA graph, the plain version's too, and the bound from the row's
+    own inputs (value, float32 locations and weights, and the output, each
+    once; 8 dh + 8 float32 FLOP a sample).  Returns the rows and the
+    kernel launches they made."""
+    from odam_torch.ops import msda
+
+    before = msda.COUNTS["LAUNCHES"]
+    dev = torch.device("cuda")
+    rows = []
+    for case, queries in MSDA_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            value, shapes, starts, loc, w = msda_inputs(MSDA_BATCH, queries, dtype, dev)
+            calls = {"": lambda: msda.ms_deform_attn(value, shapes, starts, loc, w),
+                     "plain_": lambda: msda.ms_deform_attn_plain(value, shapes, starts, loc, w)}
+            with torch.no_grad():
+                got, want = calls[""]().float(), calls["plain_"]().float()
+                rounded = msda.ms_deform_attn_plain(value, shapes, starts,
+                                                    loc.to(torch.bfloat16).float(), w).float()
+                bar, tol = msda_bar(want, dtype)
+                err, loc_err = (got - want).abs(), (rounded - want).abs()
+                where = f"ms_deform_attn {case} {str(dtype).replace('torch.', '')}"
+                if not bool((err <= bar).all()):
+                    raise AssertionError(f"{where}: max|kernel-plain| {float(err.max()):.3e} "
+                                         f"exceeds {tol}")
+                if bool((loc_err <= bar).all()):
+                    raise AssertionError(f"{where}: bf16 locations pass the bar {tol}")
+                times = {}
+                for key, fn in calls.items():
+                    times[f"{key}issue_ms"] = cuda_ms(fn)
+                    times[f"{key}device_ms"] = graph_ms(fn)
+            B, S, H, dh = value.shape
+            Lq, samples = loc.shape[1], w.numel()
+            n_bytes = (B * S * H * dh + B * Lq * H * dh) * value.element_size() + samples * 12
+            flops = samples * (8.0 * dh + 8)
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_SIMT_FLOPS * 1e3
+            rows.append({
+                "name": "ms_deform_attn", "route": "cuda", "source": MSDA_SOURCE,
+                "replaces": None, "case": f"{case} B={B}",
+                "shape": {"B": B, "Lq": Lq, "S": S, "H": H, "dh": dh, "levels": shapes,
+                          "points": loc.shape[4]},
+                "dtype": str(dtype).replace("torch.", ""), "path": "deformable_lanes",
+                "launches": None, "max_abs_err": float(err.max()), "tol": tol,
+                "bf16_locations_max_abs_err": float(loc_err.max()),
+                "ms": times["device_ms"], "plain_ms": times["plain_device_ms"],
+                "library_ms": None, **times,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_rate": MSDA_BOUND_RATE, "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            })
+            del value, loc, w, got, want, rounded, bar, err, loc_err, calls
+    return rows, msda.COUNTS["LAUNCHES"] - before
 
 
 # ------------------------------------------------------------------ modules
@@ -1385,6 +1527,110 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
     counts = {dtype: {**{name: sum(b.values()) for name, b in per.items()},
                       "lap_solve": lap_launches[dtype]} for dtype, per in by_batch.items()}
     return report, counts
+
+
+DEFORMABLE_YAML = os.path.join("odam_torch", "configs", "deformable_detr_scan_net.yaml")
+
+
+def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int = MSDA_BATCH,
+                         n_frames: int = SP_FRAMES) -> tuple[dict, dict]:
+    """Deformable DETR (``DEFORMABLE_YAML`` through ``detector_from_cfg``,
+    seeded weights) and the YAML's associator through SceneParallelRunner,
+    as the deformable benchmark cell runs them: ``n_lanes`` lanes of
+    ``n_frames`` uint8 frames, each lane in its own order.  Three runs on
+    the same frames: f32 with the kernels, f32 on the plain route
+    (``use_kernels=False``, the same weights), bf16 with the kernels.  The
+    kernel counters, MSDA's too, are zeroed just before each run and read
+    just after it: 12 MSDA calls a step (6 encoder, 6 decoder), launches of
+    the run's dtype on the kernel runs and plain calls on the plain run,
+    ``SAMPLES`` = steps x lanes x 6 x (tokens + queries) x heads x levels x
+    points; one LAP launch a step; the flash kernel (the decoder's
+    self-attention over 300 queries) and the fused kernel (the GNN) launched
+    on the card's kernel runs.  The f32 kernel run's lanes equal the plain
+    run's: detections a frame and track ids exact, rows by
+    :func:`_hold_lane`.  Returns the report and the two kernel runs'
+    launches as paths."""
+    from odam_torch import config as config_mod
+    from odam_torch.models import associator, detr
+    from odam_torch.ops import msda
+    from odam_torch.runtime import processor, scene_parallel
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    img_h, img_w = shape
+    yaml_cfg = config_mod.merge_cfg([DEFORMABLE_YAML])
+    cfg = processor.PipelineConfig(detect_threshold=0.0, score_threshold=0.0)
+    rng = np.random.default_rng(SP_ORDER_SEED)
+    frames = [rng.integers(0, 256, size=tuple(shape) + (3,), dtype=np.uint8)
+              for _ in range(n_frames)]
+    scenes = _lane_scenes(frames, n_lanes, shape)
+    levels = msda_levels(img_h, img_w)
+    queries = int(yaml_cfg["num_queries"])
+    samples = (n_frames * n_lanes * MSDA_LAYERS * (sum(h * w for h, w in levels) + queries)
+               * int(yaml_cfg["nheads"]) * len(levels) * int(yaml_cfg["enc_n_points"]))
+    calls = 2 * MSDA_LAYERS * n_frames
+    report = {"phase": "deformable_lanes", "config": DEFORMABLE_YAML, "image": [img_h, img_w],
+              "lanes": n_lanes, "frames_per_lane": n_frames, "levels": levels,
+              "queries": queries, "runs": {}}
+    paths, kept = {}, {}
+    for run, dtype, kernels in (("float32", torch.float32, True),
+                                ("float32_plain", torch.float32, False),
+                                ("bfloat16", torch.bfloat16, True)):
+        where = f"deformable_lanes {run}"
+        det = detr.init_detector(detr.detector_from_cfg(yaml_cfg, dtype=dtype,
+                                                        use_kernels=kernels), seed=0, device=dev)
+        assoc = associator.build_associator(associator.AssociatorConfig.from_cfg(
+            yaml_cfg, dtype=dtype), seed=1, device=dev)
+        runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, n_lanes, device=dev)
+        resident = _reset_peak(dev)
+        _reset_counts()
+        msda.reset_counts()
+        t0 = time.perf_counter()
+        (stores, logs), rec = _run_lanes(runner, scenes, img_h, img_w)
+        seconds = time.perf_counter() - t0
+        launches = _launches(on_card)
+        counted = {k: (dict(v) if isinstance(v, dict) else v) for k, v in msda.COUNTS.items()}
+        routed = kernels and on_card
+        want = {"LAUNCHES": calls if routed else 0, "PLAIN_CALLS": 0 if routed else calls,
+                "SAMPLES": samples}
+        if {k: counted[k] for k in want} != want or (
+                routed and counted["LAUNCHES_BY_DTYPE"][str(dtype).split(".")[1]] != calls):
+            raise AssertionError(f"{where}: MSDA counters {counted}, expected {want}")
+        if launches["lap_solve"] != n_frames:
+            raise AssertionError(f"{where}: {launches['lap_solve']} LAP launches in "
+                                 f"{n_frames} steps")
+        if routed and not (launches["flash_attention"] and launches["fused_attention"]):
+            raise AssertionError(f"{where}: attention launches {launches}")
+        if not (torch.isfinite(stores.window).all() and torch.isfinite(logs.rows).all()):
+            raise AssertionError(f"{where}: non-finite track store or log")
+        lanes_out = [(rec["n_detections"][:, lane].tolist(),
+                      logs.rows[lane, :n_frames].cpu().numpy(),
+                      logs.ids[lane, :n_frames].cpu().numpy()) for lane in range(n_lanes)]
+        if dtype == torch.float32:
+            kept[run] = lanes_out
+        report["runs"][run] = {
+            "dtype": str(dtype).replace("torch.", ""), "use_kernels": kernels,
+            "seconds": seconds, "step_ms": rec["ms"], "msda": counted, "launches": launches,
+            "synchronizing_calls_by_step": rec["synchronizing_calls"],
+            "peak_mbytes_above_resident": ((torch.cuda.max_memory_allocated() - resident) / 1e6
+                                           if on_card else None),
+            "n_detections_per_lane": rec["n_detections"].sum(axis=0).tolist()}
+        if kernels:
+            paths["deformable_lanes" if dtype == torch.float32 else "deformable_lanes_bf16"] = {
+                **launches, "ms_deform_attn": counted["LAUNCHES"]}
+        del det, assoc, runner, stores, logs
+    worst = 0.0
+    for lane, ((n, rows, ids), (n_ref, rows_ref, ids_ref)) in enumerate(
+            zip(kept["float32"], kept["float32_plain"])):
+        where = f"deformable_lanes lane {lane}"
+        if n != n_ref or not np.array_equal(ids, ids_ref):
+            raise AssertionError(f"{where}: detections {n} or track ids differ from the plain "
+                                 f"route's ({n_ref})")
+        worst = max(worst, _hold_lane(where, "float32", rows, rows_ref, img_h, img_w))
+    report.update(max_row_abs_diff_plain=worst,
+                  tol={"atol": DETR_ATOL, "rtol": DETR_RTOL, "msda_calls_per_step":
+                       2 * MSDA_LAYERS})
+    return report, paths
 
 
 def profile_steps(pipe, frames, first: int, n: int = 2, trace: str = "slice_trace.json") -> dict:
@@ -3847,6 +4093,12 @@ def main() -> int:
     lap_report, lap_rows = lap_checks()
     emit(lap_report)
     kernel_rows += lap_rows
+    msda_rows, msda_row_launches = msda_checks()
+    emit({"phase": "msda_checks", "cases": len(msda_rows), "all_within_tolerance": True,
+          "bf16_locations_fail_the_bar": True,
+          "device_ms": {f"{r['case']} {r['dtype']}": r["ms"] for r in msda_rows},
+          "plain_ms": {f"{r['case']} {r['dtype']}": r["plain_ms"] for r in msda_rows}})
+    kernel_rows += msda_rows
     modules, det_gpu, as_gpu = module_checks(rng)
     emit(modules)
     paths = {}
@@ -3870,6 +4122,15 @@ def main() -> int:
         for name, n in paths[path].items():
             if n == 0:
                 raise AssertionError(f"{name} was never launched on the {path} path")
+    from odam_torch.ops import msda
+
+    if msda.COUNTS["LAUNCHES"] != msda_row_launches:     # no DETR path samples a level
+        raise AssertionError(f"the MSDA kernel launched {msda.COUNTS['LAUNCHES']} times, its "
+                             f"rows {msda_row_launches}: a DETR path launched it")
+    deformable_report, deformable_paths = deformable_lanes_run()
+    emit(deformable_report)
+    paths.update(deformable_paths)
+    msda_path_launches = msda.COUNTS["LAUNCHES"]       # the bf16 run's, zeroed before it
     mapping_report = mapping_run(np.random.default_rng(MAP_SEED), det_gpu, as_gpu)
     emit(mapping_report)
     emit(mapping_lm_run(det_gpu, as_gpu, mapping_report))
@@ -3938,6 +4199,10 @@ def main() -> int:
             raise AssertionError(f"lap_solve was never launched on the {path} path")
     tool_launches = {(r["case"], r["dtype"], f"{col}_attention"): r[f"{col}_launches"]
                      for r in attn_rows for col in ("fused", "flash")}
+    if msda.COUNTS["LAUNCHES"] != msda_path_launches:
+        raise AssertionError("a path after deformable_lanes launched the MSDA kernel")
+    for counts in paths.values():       # none but the deformable paths launched it (above)
+        counts.setdefault("ms_deform_attn", 0)
     for row in kernel_rows:
         if not row["ms"] > row["bound_ms"]:
             raise AssertionError(f"{row['name']} {row.get('case')}: {row['ms']} ms at or "
@@ -3950,6 +4215,9 @@ def main() -> int:
                 row["shape"]["B"], 0)
         elif str(row["path"]).startswith("examples:"):    # the launches of that example's run
             row["launches"] = paths[row["path"]][row["name"]]
+        elif row["path"] == "deformable_lanes":     # the deformable lane step's, this dtype
+            row["launches"] = paths["deformable_lanes" if row["dtype"] == "float32"
+                                    else "deformable_lanes_bf16"][row["name"]]
         else:
             main_path = "slice" if row["dtype"] == "float32" else "slice_bf16"
             row["launches"] = paths[main_path][row["name"]]

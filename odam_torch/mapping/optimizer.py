@@ -232,7 +232,9 @@ class StaticSolve:
                     loss_log[done - 1].copy_(self.loss)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # other threads of the process may run CUDA work meanwhile (a
+            # cudaMalloc, a sync): only this thread's calls can break the capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self.iteration()
             self.graph = graph
             COUNTS["graph_captures"] += 1

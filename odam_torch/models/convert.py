@@ -165,9 +165,9 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
     """Seeded init with Flax's defaults: lecun-normal Dense/Conv kernels, zero
     biases, unit/zero norm affines, Embed's truncated normal of std
-    features^-1/2, ``normal(1.0)`` for ``query_embed`` and
-    1 for ``bin_score``.  Draws on the CPU, so a seed gives the same weights
-    on every device."""
+    features^-1/2, ``normal(1.0)`` for ``query_embed`` and Deformable
+    DETR's ``level_embed``, and 1 for ``bin_score``.  Draws on the CPU, so a
+    seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     for name, mod in sorted(module.named_modules()):
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -182,7 +182,7 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
             _lecun_normal_(mod.weight, mod.weight.shape[1], gen)
     with torch.no_grad():
         for name, p in module.named_parameters(recurse=False):
-            if name == "query_embed":
+            if name in ("query_embed", "level_embed"):
                 p.copy_(torch.randn(p.shape, generator=gen))
             elif name == "bin_score":
                 p.fill_(1.0)

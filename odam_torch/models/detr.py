@@ -66,7 +66,15 @@ class DETRConfig:
     @classmethod
     def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32,
                  use_kernels: bool = True) -> "DETRConfig":
-        """Build from the reference YAML schema (configs/detr_scan_net.yaml)."""
+        """Build from the reference YAML schema (configs/detr_scan_net.yaml).
+
+        A YAML whose ``transformer`` names another detector raises: an
+        entry point that builds DETR alone must not run it in that
+        detector's place (:func:`detector_from_cfg` builds either)."""
+        kind = cfg.get("transformer", "detr")
+        if kind != "detr":
+            raise ValueError(f"the YAML names transformer {kind!r}, and this builds DETR only: "
+                             "build the detector with models.detr.detector_from_cfg")
         return cls(
             num_classes=int(cfg.get(
                 "num_classes", 18 if cfg.get("dataset_file", "scan_net") == "scan_net" else 20)),
@@ -200,13 +208,37 @@ def build_detr(config: DETRConfig = DETRConfig(), *, flax_params=None, seed: int
     Weights come from ``flax_params`` (a Flax tree of numpy arrays, see
     :mod:`odam_torch.models.convert`) or, without one, from the seeded init.
     """
+    return init_detector(DETR(config), flax_params=flax_params, seed=seed, device=device)
+
+
+def init_detector(model: nn.Module, *, flax_params=None, seed: int = 0,
+                  device: str | torch.device | None = None) -> nn.Module:
+    """``model`` (a DETR or a Deformable DETR) in eval mode on ``device``,
+    with the weights of ``flax_params`` or the seeded init, as
+    :func:`build_detr`."""
     dev = resolve_device(device)
-    model = DETR(config)
     if flax_params is not None:
         convert.load_flax_params(model, flax_params)
     else:
         convert.init_flax_like_(model, seed)
     return model.to(dev).eval()
+
+
+def detector_from_cfg(cfg: dict, dtype: torch.dtype = torch.float32,
+                      use_kernels: bool = True) -> nn.Module:
+    """The detector a YAML names with ``transformer``: ``detr`` (the default)
+    builds :class:`DETR` from :meth:`DETRConfig.from_cfg`, ``deformable`` a
+    :class:`~odam_torch.models.deformable_detr.DeformableDETR`.  Its weights
+    are the constructor's (see :func:`init_detector`)."""
+    kind = cfg.get("transformer", "detr")
+    if kind == "detr":
+        return DETR(DETRConfig.from_cfg(cfg, dtype=dtype, use_kernels=use_kernels))
+    if kind == "deformable":
+        from .deformable_detr import DeformableDETR, DeformableDETRConfig
+
+        return DeformableDETR(DeformableDETRConfig.from_cfg(cfg, dtype=dtype,
+                                                            use_kernels=use_kernels))
+    raise ValueError(f"unknown transformer {kind!r}: 'detr' or 'deformable'")
 
 
 class Detections(NamedTuple):

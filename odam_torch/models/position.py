@@ -14,9 +14,11 @@ from torch import nn
 
 def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
                            temperature: float = 10000.0,
-                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                           dtype: torch.dtype = torch.float32,
+                           offset: float = 0.0) -> torch.Tensor:
     """2D sine positional features from a padding mask; the cumulative
-    coordinates are normalized over the unpadded region to [0, 2 pi].  Made
+    coordinates, less ``offset`` (Deformable DETR's 0.5 puts each pixel at
+    its centre), are normalized over the unpadded region to [0, 2 pi].  Made
     in float32, then cast to ``dtype``.
 
     Args:
@@ -29,8 +31,11 @@ def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int = 128,
     y_embed = torch.cumsum(not_mask, dim=1)
     x_embed = torch.cumsum(not_mask, dim=2)
     eps, scale = 1e-6, 2 * math.pi
-    y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
-    x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
+    y_end, x_end = y_embed[:, -1:, :], x_embed[:, :, -1:]
+    if offset:
+        y_embed, x_embed = y_embed - offset, x_embed - offset
+    y_embed = y_embed / (y_end + eps) * scale
+    x_embed = x_embed / (x_end + eps) * scale
 
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=mask.device)
     dim_t = temperature ** (2 * torch.floor(dim_t / 2) / num_pos_feats)

@@ -157,14 +157,20 @@ def build_models(cfg, detector_ckpt: str, associator_ckpt: str, decode: str, dev
     from ..models import detr as detr_mod
     from ..models import porting
 
-    dcfg = detr_mod.DETRConfig.from_cfg(cfg, dtype=dtype, use_kernels=use_kernels)
+    detr = detr_mod.detector_from_cfg(cfg, dtype=dtype, use_kernels=use_kernels)
     acfg = dataclasses.replace(
         assoc_mod.AssociatorConfig.from_cfg(cfg, dtype=dtype, use_kernels=use_kernels),
         decode=decode)
-    detr = detr_mod.build_detr(dcfg, device=device, flax_params=load_weights(
-        detector_ckpt, "detector",
-        lambda sd: porting.convert_detr(sd, enc_layers=dcfg.enc_layers,
-                                        dec_layers=dcfg.dec_layers)))
+
+    def detr_from_pth(sd):
+        if not isinstance(detr, detr_mod.DETR):
+            sys.exit("a reference .pth is read for DETR only: Deformable DETR's upstream "
+                     "checkpoint is not converted")
+        return porting.convert_detr(sd, enc_layers=detr.config.enc_layers,
+                                    dec_layers=detr.config.dec_layers)
+
+    detr = detr_mod.init_detector(detr, device=device, flax_params=load_weights(
+        detector_ckpt, "detector", detr_from_pth))
     assoc = assoc_mod.build_associator(acfg, device=device, flax_params=load_weights(
         associator_ckpt, "associator",
         lambda sd: porting.convert_associator(sd, d_model=acfg.descriptor_dim,

@@ -25,7 +25,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_odam_tpu():
     mods = _modules()
     assert len(mods) >= 20
-    required = {"odam_torch.models." + m for m in ("matcher", "criterion", "training")}
+    required = {"odam_torch.models." + m for m in ("matcher", "criterion", "training",
+                                                   "deformable_detr", "deformable_transformer")}
+    required |= {"odam_torch.ops.msda"}
     required |= {"odam_torch.data.datasets", "odam_torch.utils.checkpoint",
                  "odam_torch.utils.metrics", "odam_torch.scripts.train_detector",
                  "odam_torch.scripts.train_associator", "odam_torch.runtime.scene_parallel",

@@ -187,3 +187,35 @@ def test_two_results_held_at_once_do_not_share_memory(card):
     held = [t.data_ptr() for res in (a, b) for t in (*res.params, res.loss_log)]
     inner = [t.data_ptr() for t in (*static.params, static.loss, *static.inputs)]
     assert len(set(held)) == len(held) and not set(held) & set(inner)
+
+
+@pytest.mark.h100
+def test_a_capture_holds_beside_another_threads_allocation(card, monkeypatch):
+    """While a solve's graph is being captured, another thread of the process
+    allocates fresh device memory (a cudaMalloc, which in the default capture
+    mode breaks a capture made in any thread), as ``chip_smoke.py``'s
+    studies run the recall diagnosis's stages in threads side by side: the
+    capture holds, and the losses equal the eager loop's."""
+    import threading
+
+    real, fresh = optimizer.solve_step, {}
+
+    def allocate():
+        fresh["t"] = torch.empty(3 << 28, dtype=torch.uint8, device=card)   # a new segment
+
+    def solve_step(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and not fresh:
+            worker = threading.Thread(target=allocate)
+            worker.start()
+            worker.join()
+        return real(*args, **kwargs)
+
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(optimizer, "solve_step", solve_step)
+    init, inputs = scene(5, n_objs=16, n_views=64)
+    captures = optimizer.COUNTS["graph_captures"]
+    res = _solve(init, inputs, "super_quadric", card)
+    monkeypatch.setattr(optimizer, "solve_step", real)
+    assert "t" in fresh and optimizer.COUNTS["graph_captures"] == captures + 1
+    losses, _ = _eager(init, inputs, "super_quadric", card)
+    assert torch.equal(res.loss_log, losses)
