@@ -37,6 +37,12 @@ Phases, each printed as one JSON line on stdout:
    cross-attention, 300 queries; f32 and bf16 values): within
    ``msda_bar``, which the plain version with bf16 locations must fail;
    device time from a CUDA graph, the plain version's, the bound;
+   sinkhorn_checks: the Sinkhorn kernel (odam_torch/csrc/sinkhorn.cu)
+   against its plain version at the lane step's [16, 64, 30], on seeded
+   stores and on lanes with an empty store, no detections or both, at 0,
+   1, 3 and 100 iterations: one launch a call, live entries within 1e-5,
+   the -inf and NaN entries exactly; device time from a CUDA graph, the
+   plain version's, the issue times, the bound;
 4. modules: the full-width DETR on one 800x1071 frame and the full-width
    associator on a filled 64x100 store, on the card (kernels) against the
    same module and weights on the CPU (plain versions);
@@ -60,15 +66,16 @@ Phases, each printed as one JSON line on stdout:
    and 8 lanes of 4 uint8 frames each (every lane in its own order), f32
    then bf16, every lane against the serial f32 pipeline; aggregate
    frames/s, step and lane-frame times, launches a step (profiled), host
-   syncs (none from step 2 on), one LAP launch a step, peak memory, and
-   both kernels' launches at B = P;
+   syncs (none from step 2 on), one LAP and one Sinkhorn launch a step,
+   peak memory, and both kernels' launches at B = P;
    deformable_lanes: Deformable DETR (odam_torch/configs/
    deformable_detr_scan_net.yaml, seeded) through SceneParallelRunner at 16
    lanes of 4 frames, f32 with the kernels, f32 on the plain route, bf16:
    the MSDA counters zeroed before each run, 12 calls a step (launches of
-   the run's dtype, or plain calls), the samples they took, one LAP launch
-   a step, flash and fused launched; the f32 kernel run's lanes equal to
-   the plain run's (detections and ids exact, rows within 1e-3).  No other
+   the run's dtype, or plain calls), the samples they took, one LAP and
+   one Sinkhorn launch a step, flash and fused launched; the f32 kernel
+   run's lanes equal to the plain run's (detections and ids exact, rows
+   within 1e-3).  No other
    path launches the MSDA kernel (its count is checked before this phase
    and at the end);
 9. mapping: optim_process -> merge_process -> optim_process at the default
@@ -103,10 +110,10 @@ Phases, each printed as one JSON line on stdout:
     leaf's gradient within 1e-3), then 10 bf16 steps at batch 8, 512x672
     on one synthetic batch: step time, images/s, peak memory, the loss
     falling, one LAP launch a step and no synchronizing call in the
-    matcher, frozen leaves bit-equal, no attention kernel launched, and a
-    profile of two steps (host- or device-bound);
+    matcher, frozen leaves bit-equal, no attention kernel and no Sinkhorn
+    kernel launched, and a profile of two steps (host- or device-bound);
 15. train_assoc: the same for the associator at its defaults (20 steps,
-    batch 8, no host sync);
+    batch 8, no host sync), Sinkhorn on its plain version (``use_kernels=False``);
 16. train_cli: ``python -m odam_torch.scripts.train_{detector,associator}
     --synthetic --steps 3`` on the card, their checkpoints through
     ``run_processor.build_models`` and a 2-frame ``run_processor`` run;
@@ -175,9 +182,10 @@ Phases, each printed as one JSON line on stdout:
     spawning scripts run in threads beside the in-process work; their
     child processes' launches are not counted.
 
-Then the kernel table (the LAP kernel's rows too) with the launch counts of
-every path (each row's time above its bound), the card's name and power
-limit as nvidia-smi prints them,
+Then the kernel table (the LAP and Sinkhorn kernels' rows too) with the
+launch counts of every path (each row's time above its bound; every path
+that associates on the card has launched the Sinkhorn kernel, and no
+training path has), the card's name and power limit as nvidia-smi prints them,
 and as the last line {"ok": true, "device": {...}}.  It imports nothing of
 JAX.
 """
@@ -187,6 +195,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -326,20 +335,21 @@ def hmma_counts(library: str) -> dict:
 
 
 def build() -> dict:
-    """Both kernel libraries from odam_torch/csrc, one nvcc each, started
-    together; ptxas' registers and spills, and the HMMA instructions of
-    each attention kernel."""
+    """The attention, LAP and Sinkhorn libraries from odam_torch/csrc, one
+    nvcc each, started together; ptxas' registers and spills, and the HMMA
+    instructions of each attention kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from odam_torch.ops import cuda_attention, lap
+    from odam_torch.ops import cuda_attention, lap, sinkhorn
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(m.load_library) for m in (cuda_attention, lap)]:
+    with ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(m.load_library) for m in (cuda_attention, lap, sinkhorn)]:
             job.result()
     seconds = time.perf_counter() - t0
     libs = {}
-    for name, info in (("attention", cuda_attention.BUILD_INFO), ("lap", lap.BUILD_INFO)):
+    for name, info in (("attention", cuda_attention.BUILD_INFO), ("lap", lap.BUILD_INFO),
+                       ("sinkhorn", sinkhorn.BUILD_INFO)):
         libs[name] = {"seconds": info["seconds"] if not info["cached"] else "cached",
                       "library": os.path.relpath(info["path"]),
                       "ptxas": [ln.strip() for ln in info.get("ptxas", "").splitlines()
@@ -835,6 +845,119 @@ def msda_checks() -> tuple[list[dict], int]:
     return rows, msda.COUNTS["LAUNCHES"] - before
 
 
+# ----------------------------------------------------------------- sinkhorn
+
+SINKHORN_SOURCE = "odam_torch/csrc/sinkhorn.cu"
+# not a Pallas kernel: JAX's Sinkhorn is a lax.scan
+SINKHORN_REPLACES = "odam_tpu/ops/sinkhorn.py:log_optimal_transport"
+SINKHORN_SEED = 17
+SINKHORN_ITERS = (0, 1, 3, 100)
+SINKHORN_ALPHA = 1.3
+# tests/test_torch_sinkhorn_kernel.py's bars: live entries (up to ~20, a
+# float32 unit 1.9e-6 there) within ~5 units; entries near -1e9 to their
+# relative rounding; -inf, +inf and NaN exactly where the plain version has them.
+SINKHORN_LIVE_ATOL = 1e-5
+SINKHORN_MASKED_RTOL = 1e-6
+
+
+def sinkhorn_cases(rng, B: int = 16, M: int = 64, N: int = 30):
+    """(label, scores, row_mask, col_mask) at the lane step's [16, 64, 30] on
+    the card, scores as normal x 3: "lanes", stores of 48 tracks (a quarter
+    of the lanes another count) and 1-30 detections; "edges", lanes in turn
+    an empty store, a frame without detections, both, and a full store."""
+    dev = torch.device("cuda")
+
+    def masks(rows, cols):
+        return (torch.from_numpy(np.arange(M)[None] < np.asarray(rows)[:, None]).to(dev),
+                torch.from_numpy(np.arange(N)[None] < np.asarray(cols)[:, None]).to(dev))
+
+    for label, (rows, cols) in {
+            "lanes": (np.where(rng.random(B) < 0.25, rng.integers(0, M, B), 48),
+                      rng.integers(1, N + 1, B)),
+            "edges": (np.tile([0, 48, 0, M], B // 4), np.tile([26, 0, 0, N], B // 4))}.items():
+        scores = torch.from_numpy(rng.normal(size=(B, M, N)).astype(np.float32) * 3).to(dev)
+        yield (label, scores, *masks(rows, cols))
+
+
+def transport_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The kernel's log assignment against the plain version's: the largest
+    gap of the live entries, the largest relative gap of those near -1e9, and
+    whether the -inf, +inf and NaN entries fall in the same places."""
+    g, w = got.double(), want.double()
+    finite = torch.isfinite(w)
+    live = finite & (w > -1e8)
+    masked = finite & ~live
+    same = bool(torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(g == math.inf, w == math.inf)
+                and torch.equal(g == -math.inf, w == -math.inf))
+    return {"max_abs_err": float((g - w)[live].abs().max()) if live.any() else 0.0,
+            "masked_max_rel_err": (float(((g - w) / w)[masked].abs().max()) if masked.any()
+                                   else 0.0),
+            "non_finite_equal": same, "live": int(live.sum()), "masked": int(masked.sum()),
+            "neg_inf": int((w == -math.inf).sum()), "nan": int(torch.isnan(w).sum())}
+
+
+def sinkhorn_checks() -> tuple[dict, list[dict]]:
+    """The Sinkhorn kernel (``log_optimal_transport`` on CUDA tensors under
+    no_grad) against its plain version on the card, on ``sinkhorn_cases`` at
+    each of ``SINKHORN_ITERS``: one launch a call, live entries within
+    SINKHORN_LIVE_ATOL, those near -1e9 within SINKHORN_MASKED_RTOL, the
+    -inf and NaN entries exactly; device time a call from a CUDA graph (the
+    plain version's too, 2 calls a graph), the issue time of each, and the
+    bound: bytes over 3.35 TB/s (scores, masks and the output once each)."""
+    from odam_torch.ops import sinkhorn
+
+    rng = np.random.default_rng(SINKHORN_SEED)
+    alpha = torch.tensor(SINKHORN_ALPHA, device="cuda")
+    rows = []
+    for label, scores, rm, cm in sinkhorn_cases(rng):
+        for iters in SINKHORN_ITERS:
+            where = f"sinkhorn {label} iters={iters}"
+            args = (scores, alpha, iters, rm, cm)
+            with torch.no_grad():
+                before = dict(sinkhorn.LAUNCHES), dict(sinkhorn.PLAIN_CALLS)
+                got = sinkhorn.log_optimal_transport(*args)
+                want = sinkhorn.log_optimal_transport_plain(*args)
+                torch.cuda.synchronize()
+                if (sinkhorn.LAUNCHES["sinkhorn"] != before[0]["sinkhorn"] + 1
+                        or sinkhorn.PLAIN_CALLS != before[1]):
+                    raise AssertionError(f"{where}: not one launch ({sinkhorn.LAUNCHES}, plain "
+                                         f"{sinkhorn.PLAIN_CALLS})")
+                gap = transport_gap(got, want)
+                if not (gap["non_finite_equal"] and gap["max_abs_err"] <= SINKHORN_LIVE_ATOL
+                        and gap["masked_max_rel_err"] <= SINKHORN_MASKED_RTOL):
+                    raise AssertionError(f"{where}: kernel against plain {gap}")
+                times = {"ms": graph_ms(lambda: sinkhorn.log_optimal_transport(*args)),
+                         "issue_ms": cuda_ms(lambda: sinkhorn.log_optimal_transport(*args)),
+                         "plain_ms": graph_ms(lambda: sinkhorn.log_optimal_transport_plain(*args),
+                                              calls=2),
+                         "plain_issue_ms": cuda_ms(
+                             lambda: sinkhorn.log_optimal_transport_plain(*args), reps=5)}
+            B, M, N = scores.shape
+            n_bytes = 4 * B * M * N + B * (M + N) + 4 + 4 * B * (M + 1) * (N + 1)
+            rows.append({
+                "name": "sinkhorn", "route": "cuda", "source": SINKHORN_SOURCE,
+                "replaces": SINKHORN_REPLACES, "case": f"{label} iters={iters}",
+                "shape": {"B": B, "M": M, "N": N, "iters": iters},
+                "dtype": "float32", "path": "scene_parallel_full",
+                "launches": None, **gap,
+                "tol": {"live_atol": SINKHORN_LIVE_ATOL, "masked_rtol": SINKHORN_MASKED_RTOL,
+                        "non_finite": "equal"},
+                **times, "library_ms": None,
+                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bound_note": "bytes over 3.35 TB/s; the kernel is latency-bound: 2 x iters "
+                              "dependent passes, each a max, a sum and a block barrier",
+                "mbytes": n_bytes / 1e6})
+    report = {"phase": "sinkhorn_checks", "cases": len(rows), "all_within_tolerance": True,
+              "max_abs_err": max(r["max_abs_err"] for r in rows),
+              "masked_max_rel_err": max(r["masked_max_rel_err"] for r in rows),
+              "device_ms": {r["case"]: r["ms"] for r in rows},
+              "plain_ms": {r["case"]: r["plain_ms"] for r in rows},
+              "issue_ms": {r["case"]: r["issue_ms"] for r in rows},
+              "plain_issue_ms": {r["case"]: r["plain_issue_ms"] for r in rows}}
+    return report, rows
+
+
 # ------------------------------------------------------------------ modules
 
 def _intrinsics(img_h: int, img_w: int) -> np.ndarray:
@@ -876,7 +999,8 @@ def module_checks(rng) -> tuple[dict, object, object]:
             raise AssertionError(f"DETR {name}: card vs CPU max|diff| "
                                  f"{float((g - c).abs().max()):.3e}")
         detr_err[name] = float((g - c).abs().max())
-    if detr_launches != {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0}:
+    if detr_launches != {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0,
+                         "sinkhorn": 0}:
         raise AssertionError(f"DETR forward launches {detr_launches}")
 
     as_gpu = associator.build_associator(associator.AssociatorConfig(), seed=1)
@@ -912,7 +1036,8 @@ def module_checks(rng) -> tuple[dict, object, object]:
     if not torch.equal(o_gpu.matches.cpu(), o_cpu.matches) or n_matched == 0:
         raise AssertionError(f"associator matches differ between card and CPU "
                              f"({n_matched} matched on the CPU)")
-    if assoc_launches != {"flash_attention": 0, "fused_attention": 16, "lap_solve": 1}:
+    if assoc_launches != {"flash_attention": 0, "fused_attention": 16, "lap_solve": 1,
+                          "sinkhorn": 1}:
         raise AssertionError(f"associator launches {assoc_launches}")
     report = {"phase": "modules",
               "detr": {"max_abs_err": detr_err, "tol": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
@@ -1016,7 +1141,7 @@ def detr_variants_run(shape=SLICE_SHAPE, devices: tuple[str, str] = ("cuda", "cp
                                  f"{float((g - c).abs().max()):.3e}")
         err[name] = float((g - c).abs().max())
     tokens = (shape[0] + 15) // 16 * ((shape[1] + 15) // 16)
-    want = {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0}
+    want = {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0, "sinkhorn": 0}
     if card.type == "cuda" and launches != want:
         raise AssertionError(f"detr_variants: launches {launches}, expected {want}")
     backbone = models["card"].backbone
@@ -1062,20 +1187,21 @@ def _slice_frames(rng) -> list:
 
 def _reset_counts() -> None:
     from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap
+    from odam_torch.ops import lap, sinkhorn
 
     ca.reset_counts()
     lap.reset_counts()
+    sinkhorn.reset_counts()
 
 
 def _launches(on_card: bool = True) -> dict:
     """Every kernel's launches so far (off the card, its plain calls)."""
     from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap
+    from odam_torch.ops import lap, sinkhorn
 
     if on_card:
-        return {**ca.LAUNCHES, **lap.LAUNCHES}
-    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS}
+        return {**ca.LAUNCHES, **lap.LAUNCHES, **sinkhorn.LAUNCHES}
+    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS, **sinkhorn.PLAIN_CALLS}
 
 
 def _sync_checked(fn, dev: torch.device):
@@ -1145,7 +1271,7 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
         ms = (time.perf_counter() - t0) * 1e3
         launches, by_dtype = _launch_delta(before, before_dt)
         expected = {"flash_attention": 12, "fused_attention": 6 if f == 0 else 22,
-                    "lap_solve": 0 if f == 0 else 1}
+                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1}
         if launches != expected:
             raise AssertionError(f"{phase} frame {f}: launches {launches}, expected {expected}")
         _check_dtype(f"{phase} frame {f}", by_dtype, dtype)
@@ -1267,7 +1393,7 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
                                       cached.device)
         launches = {k: n - before[k] for k, n in _launches().items()}
         expected = {"flash_attention": 0, "fused_attention": 0 if f == 0 else 16,
-                    "lap_solve": 0 if f == 0 else 1}
+                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1}
         if launches != expected:
             raise AssertionError(f"offline frame {f}: launches {launches}, expected {expected}")
         if f >= 2 and cached.host_syncs - syncs:
@@ -1452,7 +1578,7 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
                                device=dev))}
     report = {"phase": "scene_parallel_full", "image": [img_h, img_w],
               "frames_per_lane": n_frames, "transport": "uint8", "runs": {}}
-    by_batch, lap_launches = {}, {}
+    by_batch, assoc_launches = {}, {}
     for dtype, (det, assoc) in models.items():
         for P in lanes:
             where = f"scene_parallel_full {dtype} P={P}"
@@ -1468,10 +1594,12 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
             syncs = rec["synchronizing_calls"]
             if on_card and any(syncs[2:]):     # every lane holds a track from step 2 on
                 raise AssertionError(f"{where}: synchronizing CUDA calls by step {syncs}")
-            if launches["lap_solve"] != n_frames:         # every lane's decode in one launch
-                raise AssertionError(f"{where}: {launches['lap_solve']} LAP launches in "
-                                     f"{n_frames} steps")
-            lap_launches[dtype] = lap_launches.get(dtype, 0) + launches["lap_solve"]
+            for name in ("lap_solve", "sinkhorn"):   # every lane's transport and decode: one each
+                if launches[name] != n_frames:
+                    raise AssertionError(f"{where}: {launches[name]} {name} launches in "
+                                         f"{n_frames} steps")
+                totals = assoc_launches.setdefault(dtype, {})
+                totals[name] = totals.get(name, 0) + launches[name]
             peak = torch.cuda.max_memory_allocated() - resident if on_card else None
             if on_card and any(set(b) != {P} for b in batches.values()):
                 raise AssertionError(f"{where}: launches by batch {batches}, not all at B = {P}")
@@ -1524,8 +1652,8 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
     report["tol"] = {"float32": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
                      "bfloat16": f"|bf16 - f32| <= {BF16_ROW_RTOL} x max(1, |f32|), pixel "
                                  "columns in units of the frame"}
-    counts = {dtype: {**{name: sum(b.values()) for name, b in per.items()},
-                      "lap_solve": lap_launches[dtype]} for dtype, per in by_batch.items()}
+    counts = {dtype: {**{name: sum(b.values()) for name, b in per.items()}, **assoc_launches[dtype]}
+              for dtype, per in by_batch.items()}
     return report, counts
 
 
@@ -1596,9 +1724,10 @@ def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int =
         if {k: counted[k] for k in want} != want or (
                 routed and counted["LAUNCHES_BY_DTYPE"][str(dtype).split(".")[1]] != calls):
             raise AssertionError(f"{where}: MSDA counters {counted}, expected {want}")
-        if launches["lap_solve"] != n_frames:
-            raise AssertionError(f"{where}: {launches['lap_solve']} LAP launches in "
-                                 f"{n_frames} steps")
+        for name in ("lap_solve", "sinkhorn"):     # the associator's kernels either way
+            if launches[name] != n_frames:
+                raise AssertionError(f"{where}: {launches[name]} {name} launches in "
+                                     f"{n_frames} steps")
         if routed and not (launches["flash_attention"] and launches["fused_attention"]):
             raise AssertionError(f"{where}: attention launches {launches}")
         if not (torch.isfinite(stores.window).all() and torch.isfinite(logs.rows).all()):
@@ -2342,7 +2471,8 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
     for device, run in runs.items():
         for fr in run["frames"]:
             want = {"flash_attention": 0, "fused_attention": 14 if fr["associated"] else 6,
-                    "lap_solve": int(fr["associated"] and fr["exact_decode"])}
+                    "lap_solve": int(fr["associated"] and fr["exact_decode"]),
+                    "sinkhorn": int(fr["associated"])}
             got = {k: fr[k] for k in want}
             if got != want:
                 raise AssertionError(f"{device} frame {fr['frame']}: attention calls {got}, "
@@ -2369,15 +2499,16 @@ def _expected_cli_calls(entry: dict, offline: bool) -> dict:
     GNN layers x 2 directions) once the store holds a track; offline, the
     detector's batch is above KERNEL_MAX_BATCH (no call) and a frame makes
     the 16 GNN calls once the store holds a track.  Such a frame launches the
-    LAP kernel once with the exact decode (not with ``--profile fast``'s
-    greedy one)."""
+    Sinkhorn kernel once, and the LAP kernel once with the exact decode (not
+    with ``--profile fast``'s greedy one)."""
     if entry.get("detect"):
-        return {"flash_attention": 0, "fused_attention": 0, "lap_solve": 0}
+        return {"flash_attention": 0, "fused_attention": 0, "lap_solve": 0, "sinkhorn": 0}
     gnn = 16 if entry["associated"] else 0
-    lap_solve = int(entry["associated"] and entry["exact_decode"])
+    assoc = {"lap_solve": int(entry["associated"] and entry["exact_decode"]),
+             "sinkhorn": int(entry["associated"])}
     if offline:
-        return {"flash_attention": 0, "fused_attention": gnn, "lap_solve": lap_solve}
-    return {"flash_attention": 12, "fused_attention": 6 + gnn, "lap_solve": lap_solve}
+        return {"flash_attention": 0, "fused_attention": gnn, **assoc}
+    return {"flash_attention": 12, "fused_attention": 6 + gnn, **assoc}
 
 
 def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device: str = "cuda",
@@ -2582,9 +2713,11 @@ def _train_report(phase, model, state, before, ms, losses, syncs, samples, peak,
         raise AssertionError(f"{phase}: trained leaves did not move: {still[:4]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
-    attention = {k: n for k, n in launches.items() if k != "lap_solve"}
+    attention = {k: n for k, n in launches.items() if k not in ("lap_solve", "sinkhorn")}
     if any(attention.values()):
         raise AssertionError(f"{phase}: attention kernels launched {attention}")
+    if launches["sinkhorn"]:        # training's transport is the plain version's
+        raise AssertionError(f"{phase}: the Sinkhorn kernel launched {launches['sinkhorn']} times")
     median = float(np.median(ms[1:]))
     return {"phase": phase, "steps": len(ms), "step_ms": ms, "step_median_ms": median,
             "samples_per_s": samples / median * 1e3,
@@ -2902,7 +3035,8 @@ def _dist_rank(report: dict, on_card: bool) -> dict:
             "grad_allreduce_floats": report["detr_train"]["trained_floats"],
             "peak_bytes_by_stage": report["peak_bytes"],
             "lanes_this_rank": lanes["lanes_this_rank"],
-            "launches_by_stage": {k: {**report[k][kind], "lap_solve": report[k]["lap"][kind]}
+            "launches_by_stage": {k: {**report[k][kind], "lap_solve": report[k]["lap"][kind],
+                                      "sinkhorn": report[k]["sinkhorn"][kind]}
                                   for k in ("detect", "lanes")},
             "lanes_launches_by_batch": lanes["launches_by_batch"],
             "lane_rate": report.get("lane_rate")}
@@ -3124,7 +3258,7 @@ def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device
     launched = _launches(dev.type == "cuda")
     for s in scenes:
         want = {"flash_attention": 12 * s["frames"], "fused_attention": 6 * s["frames"],
-                "lap_solve": 0}
+                "lap_solve": 0, "sinkhorn": 0}
         if s["launches"] != want:
             raise AssertionError(f"tracking {s['scene']}: launches {s['launches']}, expected {want}")
         _check_dtype(f"tracking {s['scene']}", s["launches_by_dtype"], "bfloat16")
@@ -3179,7 +3313,8 @@ def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking
         del det
     card, cpu = runs["card"], runs["cpu"]
     frames = len(card["stats"]["frame_ms"])
-    want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames, "lap_solve": 0}
+    want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames, "lap_solve": 0,
+            "sinkhorn": 0}
     for side, run in runs.items():
         if run["calls"] != want:
             raise AssertionError(f"tracking_rehearsal {side}: attention calls {run['calls']}, "
@@ -3265,7 +3400,8 @@ def eval_association_run(out_root: str = os.path.join("chiprun_out", "eval_assoc
     finally:
         association.evaluate_scene = inner
     frames = full["TOTAL"].n_frames
-    if calls != {"flash_attention": 0, "fused_attention": 16 * frames, "lap_solve": frames}:
+    if calls != {"flash_attention": 0, "fused_attention": 16 * frames, "lap_solve": frames,
+                 "sinkhorn": frames}:
         raise AssertionError(f"eval_association: launches {calls} over {frames} frames")
     _check_dtype("eval_association", by_dtype, "float32")
     rehearsal = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
@@ -3826,9 +3962,9 @@ def _rows_differ(a: dict, b: dict) -> bool:
 
 def _plain_calls() -> dict:
     from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap
+    from odam_torch.ops import lap, sinkhorn
 
-    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS}
+    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS, **sinkhorn.PLAIN_CALLS}
 
 
 def studies_run(scene_f1: dict, out_root: str = STUDIES_OUT,
@@ -4099,6 +4235,9 @@ def main() -> int:
           "device_ms": {f"{r['case']} {r['dtype']}": r["ms"] for r in msda_rows},
           "plain_ms": {f"{r['case']} {r['dtype']}": r["plain_ms"] for r in msda_rows}})
     kernel_rows += msda_rows
+    sinkhorn_report, sinkhorn_rows = sinkhorn_checks()
+    emit(sinkhorn_report)
+    kernel_rows += sinkhorn_rows
     modules, det_gpu, as_gpu = module_checks(rng)
     emit(modules)
     paths = {}
@@ -4197,6 +4336,16 @@ def main() -> int:
                  "train_detector", "eval_association"):     # cli_fast decodes greedily
         if not paths[path].get("lap_solve"):
             raise AssertionError(f"lap_solve was never launched on the {path} path")
+    for path in ("slice", "slice_bf16", "offline", "scene_parallel_full",
+                 "scene_parallel_full_bf16", "deformable_lanes", "deformable_lanes_bf16",
+                 "scene", "scene_parallel_hard", "cli_scene_parallel", "cli_full", "cli_fast",
+                 "cli_offline", "train_cli", "dist_nccl_rank0", "dist_gloo2_rank0",
+                 "dist_gloo2_rank1", "eval_association", "tools:profile_pipeline",
+                 "tools:ab_step_input", "tools:bench_scene_parallel",
+                 "examples:train_associator_synthetic", "studies:diagnose_recall",
+                 "studies:validate"):     # every path that associates on the card
+        if not paths[path].get("sinkhorn"):
+            raise AssertionError(f"the Sinkhorn kernel was never launched on the {path} path")
     tool_launches = {(r["case"], r["dtype"], f"{col}_attention"): r[f"{col}_launches"]
                      for r in attn_rows for col in ("fused", "flash")}
     if msda.COUNTS["LAUNCHES"] != msda_path_launches:
@@ -4215,6 +4364,8 @@ def main() -> int:
                 row["shape"]["B"], 0)
         elif str(row["path"]).startswith("examples:"):    # the launches of that example's run
             row["launches"] = paths[row["path"]][row["name"]]
+        elif row["path"] == "scene_parallel_full":     # the f32 lane steps' (one a step)
+            row["launches"] = paths["scene_parallel_full"][row["name"]]
         elif row["path"] == "deformable_lanes":     # the deformable lane step's, this dtype
             row["launches"] = paths["deformable_lanes" if row["dtype"] == "float32"
                                     else "deformable_lanes_bf16"][row["name"]]

@@ -9,8 +9,8 @@ The exact decode solves all B problems of a call in one launch of the LAP
 kernel (:func:`odam_torch.ops.lap.match_by_score`), on the device and with
 no host read.  Training needs no decode: :meth:`Associator.assignment`
 stops at the log assignment, and :func:`association_nll` is the loss.  ``use_kernels`` (JAX's
-``use_pallas``) sends the GNN's attention to the CUDA kernels; training
-turns it off.  ``lanes`` in :meth:`Associator.forward` and
+``use_pallas``) sends the GNN's attention and Sinkhorn to the CUDA kernels;
+training turns it off.  ``lanes`` in :meth:`Associator.forward` and
 :meth:`Associator.assignment` is the number of scenes stacked on the batch
 axis (the scene-parallel step), which the attention routes on: the GNN's
 calls at B = lanes take the kernels, the history fuser's at B = lanes x T
@@ -52,7 +52,7 @@ class AssociatorConfig:
     num_heads: int = 4
     decode: str = "exact"  # "exact" (Hungarian, the LAP kernel) | "greedy"
     dtype: torch.dtype = torch.float32   # compute dtype: float32 or bfloat16
-    use_kernels: bool = True       # the attention kernels (JAX: use_pallas)
+    use_kernels: bool = True       # the attention and Sinkhorn kernels (JAX: use_pallas)
 
     @classmethod
     def from_cfg(cls, cfg: dict, dtype: torch.dtype = torch.float32,
@@ -195,10 +195,12 @@ class Associator(nn.Module):
 
     def _transport(self, scores: torch.Tensor, track_mask: torch.Tensor,
                    det_mask: torch.Tensor) -> torch.Tensor:
-        """Sinkhorn with the dustbin: the log assignment [B, T+1, N+1]."""
-        return sinkhorn.log_optimal_transport(scores, self.bin_score.float(),
-                                              iters=self.config.sinkhorn_iterations,
-                                              row_mask=track_mask, col_mask=det_mask)
+        """Sinkhorn with the dustbin: the log assignment [B, T+1, N+1]; the
+        kernel on the card with ``use_kernels``, else the plain version."""
+        ot = (sinkhorn.log_optimal_transport if self.config.use_kernels
+              else sinkhorn.log_optimal_transport_plain)
+        return ot(scores, self.bin_score.float(), iters=self.config.sinkhorn_iterations,
+                  row_mask=track_mask, col_mask=det_mask)
 
     def _decode(self, Z, track_mask, det_mask, threshold: float) -> torch.Tensor:
         decode = lap.greedy_peel_match if self.config.decode == "greedy" else lap.match_by_score

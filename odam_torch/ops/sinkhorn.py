@@ -2,12 +2,54 @@
 
 Counterpart of ``odam_tpu/ops/sinkhorn.py``: the same math in float32, with
 padded rows and columns masked at -1e9.
+
+:func:`log_optimal_transport` on CUDA tensors runs in one launch of the
+hand-written kernel of ``odam_torch/csrc/sinkhorn.cu``: one block a problem,
+Z and the potentials in shared memory for all the iterations, on the current
+stream and with no host read, so it can be captured in a CUDA graph.  The
+kernel has no backward, so on CUDA tensors a call that needs a gradient
+raises: a model that trains is built with ``use_kernels=False``, and
+:class:`odam_torch.models.associator.Associator` then calls
+:func:`log_optimal_transport_plain` itself.  On CPU tensors the function
+runs the plain version, which autograd differentiates.  The counters
+(group ``sinkhorn`` of :func:`odam_torch.utils.metrics.snapshot`):
+``LAUNCHES`` of the kernel and ``PLAIN_CALLS`` of the plain version through
+:func:`log_optimal_transport`.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..utils import metrics
+from . import build
+
 _NEG = -1e9
+SOURCES = (build.PKG / "csrc" / "sinkhorn.cu",)
+_TOO_LARGE = -1                # odam_sinkhorn's code: Z does not fit one block
+
+LAUNCHES = {"sinkhorn": 0}
+PLAIN_CALLS = {"sinkhorn": 0}
+BUILD_INFO: dict = {}
+_lib = None
+
+metrics.register_counters("sinkhorn", {"LAUNCHES": LAUNCHES, "PLAIN_CALLS": PLAIN_CALLS})
+metrics.register_info("build", {"sinkhorn": BUILD_INFO})
+
+
+def reset_counts() -> None:
+    LAUNCHES["sinkhorn"] = PLAIN_CALLS["sinkhorn"] = 0
+
+
+def load_library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build.build_library("odam_sinkhorn", SOURCES, BUILD_INFO)))
+        lib.odam_sinkhorn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.odam_sinkhorn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def log_sinkhorn(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
@@ -25,19 +67,11 @@ def log_sinkhorn(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
     return Z + u[..., :, None] + v[..., None, :]
 
 
-def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor, iters: int = 100,
-                          row_mask: torch.Tensor | None = None,
-                          col_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Partial assignment in log space with a dustbin row and column.
-
-    Args:
-        scores: [..., M, N]; alpha: scalar dustbin score.
-        row_mask / col_mask: optional [..., M] / [..., N] validity.
-
-    Returns:
-        [..., M+1, N+1] log assignment, scaled so probabilities are
-        multiplied by (m + n).
-    """
+def log_optimal_transport_plain(scores: torch.Tensor, alpha: torch.Tensor, iters: int = 100,
+                                row_mask: torch.Tensor | None = None,
+                                col_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, which autograd differentiates;
+    arguments and result as :func:`log_optimal_transport`'s."""
     m, n = scores.shape[-2], scores.shape[-1]
     batch = scores.shape[:-2]
     dev = scores.device
@@ -67,3 +101,61 @@ def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor, iters: int 
                        dim=-1)
     Z = log_sinkhorn(Z, log_mu, log_nu, iters)
     return Z - norm[..., None]
+
+
+def _launch(scores: torch.Tensor, alpha: torch.Tensor, iters: int,
+            row_mask: torch.Tensor | None, col_mask: torch.Tensor | None) -> torch.Tensor:
+    *batch, M, N = scores.shape
+    if scores.dtype != torch.float32:
+        raise ValueError(f"sinkhorn: the kernel takes float32 scores, got {scores.dtype}")
+    if alpha.numel() != 1:
+        raise ValueError(f"sinkhorn: alpha must be one value, got shape {tuple(alpha.shape)}")
+    flat = scores.reshape(-1, M, N).contiguous()
+    S = flat.shape[0]
+    if S > 2 ** 31 - 1:
+        raise ValueError(f"sinkhorn: {S} problems exceed the grid")
+    masks = [None if mask is None else
+             mask.to(device=scores.device, dtype=torch.bool).expand(*batch, n)
+             .reshape(S, n).contiguous() for mask, n in ((row_mask, M), (col_mask, N))]
+    a = alpha.to(device=scores.device, dtype=torch.float32).reshape(1).contiguous()
+    out = torch.empty((S, M + 1, N + 1), dtype=torch.float32, device=scores.device)
+    if S:
+        with torch.cuda.device(scores.device):
+            lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+            err = lib.odam_sinkhorn(flat.data_ptr(), *(0 if m is None else m.data_ptr()
+                                                       for m in masks),
+                                    a.data_ptr(), out.data_ptr(), S, M, N, max(int(iters), 0),
+                                    stream)
+        if err == _TOO_LARGE:
+            raise ValueError(f"sinkhorn: the Z [{M + 1}, {N + 1}] of a [{M}, {N}] problem, its "
+                             "potentials and marginals do not fit one block's shared memory")
+        if err != 0:
+            raise RuntimeError(f"sinkhorn kernel launch failed: cudaError {err}")
+        LAUNCHES["sinkhorn"] += 1
+    return out.reshape(*batch, M + 1, N + 1)
+
+
+def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor, iters: int = 100,
+                          row_mask: torch.Tensor | None = None,
+                          col_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Partial assignment in log space with a dustbin row and column.
+
+    Args:
+        scores: [..., M, N]; alpha: scalar dustbin score.
+        row_mask / col_mask: optional [..., M] / [..., N] validity.
+
+    Returns:
+        [..., M+1, N+1] log assignment, scaled so probabilities are
+        multiplied by (m + n).  The kernel on CUDA tensors, where a call
+        that needs a gradient raises; the plain version on CPU tensors
+        (module docstring).
+    """
+    if scores.device.type == "cuda":
+        if torch.is_grad_enabled() and (scores.requires_grad or alpha.requires_grad):
+            raise RuntimeError(
+                "the Sinkhorn kernel has no backward: a gradient through it would be cut.  "
+                "Build the model with use_kernels=False to train it, or call it under "
+                "torch.no_grad()")
+        return _launch(scores, alpha, iters, row_mask, col_mask)
+    PLAIN_CALLS["sinkhorn"] += 1
+    return log_optimal_transport_plain(scores, alpha, iters, row_mask, col_mask)

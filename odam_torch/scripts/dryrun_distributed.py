@@ -289,19 +289,22 @@ def solve_inputs(size: str, device):
 
 def _reset_counts() -> None:
     from ..ops import cuda_attention as ca
-    from ..ops import lap
+    from ..ops import lap, sinkhorn
 
     ca.reset_counts()
     lap.reset_counts()
+    sinkhorn.reset_counts()
 
 
 def _counts() -> dict:
     from ..ops import cuda_attention as ca
-    from ..ops import lap
+    from ..ops import lap, sinkhorn
 
     return {"launches": dict(ca.LAUNCHES), "plain_calls": dict(ca.PLAIN_CALLS),
             "lap": {"launches": lap.LAUNCHES["lap_solve"],
                     "plain_calls": lap.PLAIN_CALLS["lap_solve"]},
+            "sinkhorn": {"launches": sinkhorn.LAUNCHES["sinkhorn"],
+                         "plain_calls": sinkhorn.PLAIN_CALLS["sinkhorn"]},
             "launches_by_batch": {k: {str(b): n for b, n in v.items()}
                                   for k, v in ca.LAUNCHES_BY_BATCH.items()}}
 

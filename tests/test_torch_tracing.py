@@ -14,6 +14,7 @@ from odam_torch.models import detr as t_detr
 from odam_torch.ops import cuda_attention as t_ca
 from odam_torch.ops import lap as t_lap
 from odam_torch.ops import msda as t_msda
+from odam_torch.ops import sinkhorn as t_sink
 from odam_torch.runtime import processor as t_proc
 from odam_torch.runtime import scene_parallel as t_sp
 from odam_torch.runtime import tracker as t_trk
@@ -193,8 +194,8 @@ def test_a_scene_end_shares_one_sequence_id_and_counts_its_adam_iterations():
 
 
 def test_snapshot_exports_the_registered_counters_and_reset_clears_them(lanes):
-    """The attention, LAP, LM, MSDA, optim and build groups hold the modules'
-    own dicts' values; reset() zeroes every count and forgets every span, and
+    """The attention, LAP, LM, MSDA, optim, Sinkhorn and build groups hold the
+    modules' own dicts' values; reset() zeroes every count and forgets every span, and
     leaves the build records."""
     metrics.enable()
     _step(lanes)
@@ -214,8 +215,12 @@ def test_snapshot_exports_the_registered_counters_and_reset_clears_them(lanes):
     assert counters["lm"] == {"HOST_READS": lm_solver.HOST_READS}
     assert counters["optim"] == optimizer.COUNTS
     assert counters["msda"] == t_msda.COUNTS
+    assert counters["sinkhorn"] == {"LAUNCHES": t_sink.LAUNCHES,
+                                    "PLAIN_CALLS": t_sink.PLAIN_CALLS}
+    assert counters["sinkhorn"]["PLAIN_CALLS"]["sinkhorn"] == 1      # one a lane step
     assert counters["build"] == {"attention": t_ca.BUILD_INFO, "lap": t_lap.BUILD_INFO,
-                                 "msda": t_msda.BUILD_INFO, "native": native.BUILD_INFO}
+                                 "msda": t_msda.BUILD_INFO, "native": native.BUILD_INFO,
+                                 "sinkhorn": t_sink.BUILD_INFO}
     assert metrics.snapshot()["enabled"]["counters"]["optim.adam_iterations"] == 0
 
     build = {k: dict(v) for k, v in counters["build"].items()}
@@ -223,7 +228,7 @@ def test_snapshot_exports_the_registered_counters_and_reset_clears_them(lanes):
     snap = metrics.snapshot()
     assert snap["enabled"]["spans"] == {} and snap["enabled"]["last"] == []
     assert snap["profiled"] is None
-    for group in ("attention", "lap", "lm", "msda", "optim"):
+    for group in ("attention", "lap", "lm", "msda", "optim", "sinkhorn"):
         assert not any(metrics._flat("", snap["counters"][group], {}).values()), group
     assert t_ca.PLAIN_CALLS["fused_attention"] == t_lap.PLAIN_CALLS["lap_solve"] == 0
     assert snap["counters"]["build"] == build
