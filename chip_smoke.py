@@ -8,7 +8,8 @@ Phases, each printed as one JSON line on stdout:
 
 1. toolchain: torch, CUDA, nvcc and Triton versions, the card's name and
    power limit;
-2. build: nvcc builds the attention kernels and the LAP kernel from
+2. build: nvcc builds every CUDA library of the kernel seam
+   (odam_torch/ops/kernels.py: attention, LAP, Sinkhorn, MSDA) from
    odam_torch/csrc, one nvcc a source, started together; ptxas' registers
    and spills, and the HMMA (tensor-core) instructions of each attention
    kernel in cuobjdump's SASS (it fails if a kernel has none);
@@ -76,8 +77,7 @@ Phases, each printed as one JSON line on stdout:
    one Sinkhorn launch a step, flash and fused launched; the f32 kernel
    run's lanes equal to the plain run's (detections and ids exact, rows
    within 1e-3).  No other
-   path launches the MSDA kernel (its count is checked before this phase
-   and at the end);
+   path launches the MSDA kernel (every path's launch counts hold it);
 9. mapping: optim_process -> merge_process -> optim_process at the default
    PipelineConfig (64 objects x 256 views x 1000 samples x 200 iterations)
    on a synthetic scene of 64 ground-truth boxes and 256 cameras at
@@ -287,7 +287,7 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 
 def toolchain() -> dict:
-    from odam_torch.ops.build import nvcc_path
+    from odam_torch.ops.kernels import nvcc_path
 
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
@@ -302,7 +302,7 @@ def toolchain() -> dict:
 
 
 def cuobjdump_path() -> str:
-    from odam_torch.ops.build import nvcc_path
+    from odam_torch.ops.kernels import nvcc_path
 
     cands = [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), shutil.which("cuobjdump")]
     try:
@@ -335,26 +335,27 @@ def hmma_counts(library: str) -> dict:
 
 
 def build() -> dict:
-    """The attention, LAP and Sinkhorn libraries from odam_torch/csrc, one
-    nvcc each, started together; ptxas' registers and spills, and the HMMA
-    instructions of each attention kernel."""
+    """Every CUDA library of the kernel seam, one nvcc each, started
+    together; ptxas' registers and spills, and the HMMA instructions of
+    each attention kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from odam_torch.ops import cuda_attention, lap, sinkhorn
+    from odam_torch.ops import kernels
 
+    cuda = [lib for lib in kernels.LIBRARIES.values() if lib.compiler == "nvcc"]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(m.load_library) for m in (cuda_attention, lap, sinkhorn)]:
+    with ThreadPoolExecutor(len(cuda)) as pool:
+        for job in [pool.submit(lib.load) for lib in cuda]:
             job.result()
     seconds = time.perf_counter() - t0
     libs = {}
-    for name, info in (("attention", cuda_attention.BUILD_INFO), ("lap", lap.BUILD_INFO),
-                       ("sinkhorn", sinkhorn.BUILD_INFO)):
-        libs[name] = {"seconds": info["seconds"] if not info["cached"] else "cached",
-                      "library": os.path.relpath(info["path"]),
-                      "ptxas": [ln.strip() for ln in info.get("ptxas", "").splitlines()
-                                if "registers" in ln or "spill" in ln or "smem" in ln]}
-    hmma = hmma_counts(cuda_attention.BUILD_INFO["path"])
+    for lib in cuda:
+        info = lib.info
+        libs[lib.name] = {"seconds": info["seconds"] if not info["cached"] else "cached",
+                          "library": os.path.relpath(info["path"]),
+                          "ptxas": [ln.strip() for ln in info.get("ptxas", "").splitlines()
+                                    if "registers" in ln or "spill" in ln or "smem" in ln]}
+    hmma = hmma_counts(kernels.ATTENTION.info["path"])
     for kernel in ("flash_attn_kernel", "fused_attn_kernel"):
         found = {sym: n for sym, n in hmma.items() if kernel in sym}
         if not found or min(found.values()) == 0:
@@ -630,7 +631,7 @@ def lap_checks() -> tuple[dict, list[dict]]:
     decode and the matcher whole on the card against the CPU."""
     from scipy.optimize import linear_sum_assignment
 
-    from odam_torch.ops import lap
+    from odam_torch.ops import kernels, lap
     from odam_torch.scripts.profile_lap import lap_cases, launcher, plain_stats
 
     rng = np.random.default_rng(LAP_SEED)
@@ -639,10 +640,10 @@ def lap_checks() -> tuple[dict, list[dict]]:
         S, R, C = cost.shape
         plan = lap.plan(R, C)
         gpu = cost.cuda()
-        routes = dict(lap.ROUTE_LAUNCHES)
+        routes = kernels.counts("ROUTE_LAUNCHES")["lap_solve"]
         got = lap.solve(gpu)
         torch.cuda.synchronize()
-        if lap.ROUTE_LAUNCHES[plan.route] != routes[plan.route] + 1:
+        if kernels.counts("ROUTE_LAUNCHES")["lap_solve"][plan.route] != routes[plan.route] + 1:
             raise AssertionError(f"lap_solve {label}: not launched on the {plan.route} route")
         want, stats = plain_stats(cost)
         if not torch.equal(got.cpu(), want):
@@ -663,9 +664,8 @@ def lap_checks() -> tuple[dict, list[dict]]:
             return (time.perf_counter() - t0) * 1e3
 
         shared_out = torch.empty_like(got)      # the shared route's kernel, outside the counts
-        shared_route = launcher(lap.load_library(), "shared", gpu, shared_out)
-        if shared_route() != 0:
-            raise AssertionError(f"lap_solve {label}: the shared route's launch failed")
+        shared_route = launcher(kernels.LAP, "shared", gpu, shared_out)
+        shared_route()
         torch.cuda.synchronize()
         if not torch.equal(shared_out.cpu(), want):
             raise AssertionError(f"lap_solve {label}: the shared route differs from the plain "
@@ -783,7 +783,7 @@ def msda_bar(want: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor, dict
         "rule": "2^-7 x |plain| + 1e-5 x max|plain|, each output"}
 
 
-def msda_checks() -> tuple[list[dict], int]:
+def msda_checks() -> list[dict]:
     """The MSDA wrapper (``ms_deform_attn_kernel``) at the deformable cell's
     shapes, B = 16 over its four levels: the encoder (every token a query)
     and the decoder's cross-attention (300 queries), f32 and bf16 values,
@@ -793,11 +793,9 @@ def msda_checks() -> tuple[list[dict], int]:
     module's contract keeps out (float32 locations).  Device time a call
     from a CUDA graph, the plain version's too, and the bound from the row's
     own inputs (value, float32 locations and weights, and the output, each
-    once; 8 dh + 8 float32 FLOP a sample).  Returns the rows and the
-    kernel launches they made."""
+    once; 8 dh + 8 float32 FLOP a sample)."""
     from odam_torch.ops import msda
 
-    before = msda.COUNTS["LAUNCHES"]
     dev = torch.device("cuda")
     rows = []
     for case, queries in MSDA_CASES.items():
@@ -842,7 +840,7 @@ def msda_checks() -> tuple[list[dict], int]:
                 "bound_rate": MSDA_BOUND_RATE, "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
             })
             del value, loc, w, got, want, rounded, bar, err, loc_err, calls
-    return rows, msda.COUNTS["LAUNCHES"] - before
+    return rows
 
 
 # ----------------------------------------------------------------- sinkhorn
@@ -905,7 +903,7 @@ def sinkhorn_checks() -> tuple[dict, list[dict]]:
     -inf and NaN entries exactly; device time a call from a CUDA graph (the
     plain version's too, 2 calls a graph), the issue time of each, and the
     bound: bytes over 3.35 TB/s (scores, masks and the output once each)."""
-    from odam_torch.ops import sinkhorn
+    from odam_torch.ops import kernels, sinkhorn
 
     rng = np.random.default_rng(SINKHORN_SEED)
     alpha = torch.tensor(SINKHORN_ALPHA, device="cuda")
@@ -915,14 +913,14 @@ def sinkhorn_checks() -> tuple[dict, list[dict]]:
             where = f"sinkhorn {label} iters={iters}"
             args = (scores, alpha, iters, rm, cm)
             with torch.no_grad():
-                before = dict(sinkhorn.LAUNCHES), dict(sinkhorn.PLAIN_CALLS)
+                before = kernels.counts("LAUNCHES"), kernels.counts("PLAIN_CALLS")
                 got = sinkhorn.log_optimal_transport(*args)
                 want = sinkhorn.log_optimal_transport_plain(*args)
                 torch.cuda.synchronize()
-                if (sinkhorn.LAUNCHES["sinkhorn"] != before[0]["sinkhorn"] + 1
-                        or sinkhorn.PLAIN_CALLS != before[1]):
-                    raise AssertionError(f"{where}: not one launch ({sinkhorn.LAUNCHES}, plain "
-                                         f"{sinkhorn.PLAIN_CALLS})")
+                after = kernels.counts("LAUNCHES"), kernels.counts("PLAIN_CALLS")
+                if after != ({**before[0], "sinkhorn": before[0]["sinkhorn"] + 1}, before[1]):
+                    raise AssertionError(f"{where}: not one launch ({after[0]}, plain "
+                                         f"{after[1]})")
                 gap = transport_gap(got, want)
                 if not (gap["non_finite_equal"] and gap["max_abs_err"] <= SINKHORN_LIVE_ATOL
                         and gap["masked_max_rel_err"] <= SINKHORN_MASKED_RTOL):
@@ -976,7 +974,6 @@ def _pose(f: int) -> np.ndarray:
 
 def module_checks(rng) -> tuple[dict, object, object]:
     from odam_torch.models import associator, detr
-    from odam_torch.ops import cuda_attention as ca
 
     det_gpu = detr.build_detr(detr.DETRConfig(), seed=0)
     det_cpu = detr.build_detr(detr.DETRConfig(), seed=0, device="cpu")
@@ -1000,7 +997,7 @@ def module_checks(rng) -> tuple[dict, object, object]:
                                  f"{float((g - c).abs().max()):.3e}")
         detr_err[name] = float((g - c).abs().max())
     if detr_launches != {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0,
-                         "sinkhorn": 0}:
+                         "sinkhorn": 0, "ms_deform_attn": 0}:
         raise AssertionError(f"DETR forward launches {detr_launches}")
 
     as_gpu = associator.build_associator(associator.AssociatorConfig(), seed=1)
@@ -1037,7 +1034,7 @@ def module_checks(rng) -> tuple[dict, object, object]:
         raise AssertionError(f"associator matches differ between card and CPU "
                              f"({n_matched} matched on the CPU)")
     if assoc_launches != {"flash_attention": 0, "fused_attention": 16, "lap_solve": 1,
-                          "sinkhorn": 1}:
+                          "sinkhorn": 1, "ms_deform_attn": 0}:
         raise AssertionError(f"associator launches {assoc_launches}")
     report = {"phase": "modules",
               "detr": {"max_abs_err": detr_err, "tol": {"atol": DETR_ATOL, "rtol": DETR_RTOL},
@@ -1141,7 +1138,8 @@ def detr_variants_run(shape=SLICE_SHAPE, devices: tuple[str, str] = ("cuda", "cp
                                  f"{float((g - c).abs().max()):.3e}")
         err[name] = float((g - c).abs().max())
     tokens = (shape[0] + 15) // 16 * ((shape[1] + 15) // 16)
-    want = {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0, "sinkhorn": 0}
+    want = {"flash_attention": 12, "fused_attention": 6, "lap_solve": 0, "sinkhorn": 0,
+            "ms_deform_attn": 0}
     if card.type == "cuda" and launches != want:
         raise AssertionError(f"detr_variants: launches {launches}, expected {want}")
     backbone = models["card"].backbone
@@ -1186,22 +1184,17 @@ def _slice_frames(rng) -> list:
 
 
 def _reset_counts() -> None:
-    from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap, sinkhorn
+    """Zero every kernel's counts (the seam's, odam_torch/ops/kernels.py)."""
+    from odam_torch.ops import kernels
 
-    ca.reset_counts()
-    lap.reset_counts()
-    sinkhorn.reset_counts()
+    kernels.zero_counts()
 
 
 def _launches(on_card: bool = True) -> dict:
     """Every kernel's launches so far (off the card, its plain calls)."""
-    from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap, sinkhorn
+    from odam_torch.ops import kernels
 
-    if on_card:
-        return {**ca.LAUNCHES, **lap.LAUNCHES, **sinkhorn.LAUNCHES}
-    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS, **sinkhorn.PLAIN_CALLS}
+    return kernels.counts("LAUNCHES" if on_card else "PLAIN_CALLS")
 
 
 def _sync_checked(fn, dev: torch.device):
@@ -1222,22 +1215,25 @@ def _sync_checked(fn, dev: torch.device):
 
 
 def _launch_delta(before: dict, before_dt: dict) -> tuple[dict, dict]:
-    from odam_torch.ops import cuda_attention as ca
-
-    return ({k: n - before[k] for k, n in _launches().items()},
-            {k: {d: ca.LAUNCHES_BY_DTYPE[k][d] - before_dt[k][d] for d in v}
-             for k, v in ca.LAUNCHES_BY_DTYPE.items()})
+    launches, by_dtype = _snapshot()
+    return ({k: n - before[k] for k, n in launches.items()},
+            {k: {d: n - before_dt[k].get(d, 0) for d, n in v.items()}
+             for k, v in by_dtype.items()})
 
 
 def _snapshot() -> tuple[dict, dict]:
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
 
-    return _launches(), {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()}
+    return _launches(), kernels.counts("LAUNCHES_BY_DTYPE")
 
 
 def _check_dtype(where: str, by_dtype: dict, dtype: str) -> None:
-    """Every launch counted in ``by_dtype`` is of the ``dtype`` instantiation."""
-    other = {k: {d: n for d, n in v.items() if d != dtype and n} for k, v in by_dtype.items()}
+    """Every launch counted in ``by_dtype`` of a kernel that has a ``dtype``
+    instantiation is of it (LAP and Sinkhorn have float32 only)."""
+    from odam_torch.ops import kernels
+
+    other = {k: {d: n for d, n in v.items() if d != dtype and n} for k, v in by_dtype.items()
+             if dtype in kernels.KERNELS[k].dtypes}
     if any(other.values()):
         raise AssertionError(f"{where}: launches of another dtype than {dtype}: {by_dtype}")
 
@@ -1247,8 +1243,7 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
     """OdamPipeline at full width over ``n_frames`` YUV frames (from frame 2
     a store of 48 tracks), every frame's kernel launches checked, and all of
     them of the models' dtype.  Returns (report, launches, pipeline)."""
-    from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap
+    from odam_torch.ops import kernels
     from odam_torch.runtime import processor
 
     img_h, img_w = SLICE_SHAPE
@@ -1271,7 +1266,8 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
         ms = (time.perf_counter() - t0) * 1e3
         launches, by_dtype = _launch_delta(before, before_dt)
         expected = {"flash_attention": 12, "fused_attention": 6 if f == 0 else 22,
-                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1}
+                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1,
+                    "ms_deform_attn": 0}
         if launches != expected:
             raise AssertionError(f"{phase} frame {f}: launches {launches}, expected {expected}")
         _check_dtype(f"{phase} frame {f}", by_dtype, dtype)
@@ -1285,11 +1281,12 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
                           "synchronizing_calls": sync_calls,
                           "n_detections": int(result.n_detections), "launches": launches})
     slice_launches = _launches()
-    if lap.ROUTE_LAUNCHES != {"registers": slice_launches["lap_solve"], "shared": 0}:
-        raise AssertionError(f"the {phase}'s LAP launches by route: {lap.ROUTE_LAUNCHES}")
-    if any(ca.ALIGN_COPIES.values()):
-        raise AssertionError(f"the {phase}'s attention inputs needed aligned copies: "
-                             f"{ca.ALIGN_COPIES}")
+    routes = kernels.counts("ROUTE_LAUNCHES")["lap_solve"]
+    if routes != {"registers": slice_launches["lap_solve"], "shared": 0}:
+        raise AssertionError(f"the {phase}'s LAP launches by route: {routes}")
+    copies = kernels.counts("ALIGN_COPIES")
+    if any(copies.values()):
+        raise AssertionError(f"the {phase}'s attention inputs needed aligned copies: {copies}")
     store = pipe.sequence["store"]
     if not (torch.isfinite(store.window).all() and torch.isfinite(pipe.sequence["log"].rows).all()):
         raise AssertionError(f"{phase}: non-finite track store or log")
@@ -1304,9 +1301,8 @@ def slice_run(det, assoc, frames, n_frames: int = SLICE_FRAMES, profile: bool = 
               "step_ms_median_frames_2_on": steady[len(steady) // 2],
               "n_tracks": len(tracks), "n_observations": int(sum(len(t) for t in tracks)),
               "overflow_report": pipe.overflow_report(warn=False),
-              "launches": slice_launches, "lap_route_launches": dict(lap.ROUTE_LAUNCHES),
-              "launches_by_dtype": {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()},
-              "align_copies": dict(ca.ALIGN_COPIES)}
+              "launches": slice_launches, "lap_route_launches": routes,
+              "launches_by_dtype": kernels.counts("LAUNCHES_BY_DTYPE"), "align_copies": copies}
     if profile:
         report["profile"] = profile_steps(pipe, frames, n_frames, trace=f"{phase}_trace.json")
     return report, slice_launches, pipe
@@ -1359,7 +1355,6 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
     within OFFLINE_ROW_ATOL of the online slice; launches flash 0, fused 0
     on frame 0 and 16 (the GNN) after; the detector launches none."""
     from odam_torch.data.transforms import yuv420_to_normalized_device
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.runtime import offline, processor
 
     img_h, img_w = SLICE_SHAPE
@@ -1393,7 +1388,8 @@ def offline_run(det_gpu, as_gpu, frames, online_pipe) -> tuple[dict, dict]:
                                       cached.device)
         launches = {k: n - before[k] for k, n in _launches().items()}
         expected = {"flash_attention": 0, "fused_attention": 0 if f == 0 else 16,
-                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1}
+                    "lap_solve": 0 if f == 0 else 1, "sinkhorn": 0 if f == 0 else 1,
+                    "ms_deform_attn": 0}
         if launches != expected:
             raise AssertionError(f"offline frame {f}: launches {launches}, expected {expected}")
         if f >= 2 and cached.host_syncs - syncs:
@@ -1551,7 +1547,7 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
     step.  Both kernels must launch at B = P only, and the launches a step
     at the most lanes must stay below twice those at one lane."""
     from odam_torch.models import associator, detr
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
     from odam_torch.runtime import processor, scene_parallel
 
     dev = torch.device(device)
@@ -1590,7 +1586,7 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
             (stores, logs), rec = _run_lanes(runner, scenes[:P], img_h, img_w)
             seconds = time.perf_counter() - t0
             launches = _launches(on_card)
-            batches = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+            batches = kernels.counts("LAUNCHES_BY_BATCH")
             syncs = rec["synchronizing_calls"]
             if on_card and any(syncs[2:]):     # every lane holds a track from step 2 on
                 raise AssertionError(f"{where}: synchronizing CUDA calls by step {syncs}")
@@ -1598,15 +1594,16 @@ def scene_parallel_full_run(det_f32, as_f32, device: str = "cuda", shape=SLICE_S
                 if launches[name] != n_frames:
                     raise AssertionError(f"{where}: {launches[name]} {name} launches in "
                                          f"{n_frames} steps")
-                totals = assoc_launches.setdefault(dtype, {})
+            totals = assoc_launches.setdefault(dtype, {})
+            for name in ("lap_solve", "sinkhorn", "ms_deform_attn"):
                 totals[name] = totals.get(name, 0) + launches[name]
             peak = torch.cuda.max_memory_allocated() - resident if on_card else None
             if on_card and any(set(b) != {P} for b in batches.values()):
                 raise AssertionError(f"{where}: launches by batch {batches}, not all at B = {P}")
             for name, b in batches.items():
                 by_batch.setdefault(dtype, {}).setdefault(name, {})[P] = b.get(P, 0)
-            if any(ca.ALIGN_COPIES.values()):
-                raise AssertionError(f"{where}: aligned copies {ca.ALIGN_COPIES}")
+            if any(kernels.counts("ALIGN_COPIES").values()):
+                raise AssertionError(f"{where}: aligned copies {kernels.counts('ALIGN_COPIES')}")
             worst = 0.0
             for lane in range(P):
                 n_ref, rows_ref, ids_ref = serial[lane]
@@ -1668,8 +1665,7 @@ def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int =
     ``n_frames`` uint8 frames, each lane in its own order.  Three runs on
     the same frames: f32 with the kernels, f32 on the plain route
     (``use_kernels=False``, the same weights), bf16 with the kernels.  The
-    kernel counters, MSDA's too, are zeroed just before each run and read
-    just after it: 12 MSDA calls a step (6 encoder, 6 decoder), launches of
+    kernel counters are zeroed just before each run and read just after it: 12 MSDA calls a step (6 encoder, 6 decoder), launches of
     the run's dtype on the kernel runs and plain calls on the plain run,
     ``SAMPLES`` = steps x lanes x 6 x (tokens + queries) x heads x levels x
     points; one LAP launch a step; the flash kernel (the decoder's
@@ -1680,7 +1676,7 @@ def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int =
     launches as paths."""
     from odam_torch import config as config_mod
     from odam_torch.models import associator, detr
-    from odam_torch.ops import msda
+    from odam_torch.ops import kernels
     from odam_torch.runtime import processor, scene_parallel
 
     dev = torch.device(device)
@@ -1701,24 +1697,24 @@ def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int =
               "lanes": n_lanes, "frames_per_lane": n_frames, "levels": levels,
               "queries": queries, "runs": {}}
     paths, kept = {}, {}
-    for run, dtype, kernels in (("float32", torch.float32, True),
-                                ("float32_plain", torch.float32, False),
-                                ("bfloat16", torch.bfloat16, True)):
+    for run, dtype, use_kernels in (("float32", torch.float32, True),
+                                    ("float32_plain", torch.float32, False),
+                                    ("bfloat16", torch.bfloat16, True)):
         where = f"deformable_lanes {run}"
         det = detr.init_detector(detr.detector_from_cfg(yaml_cfg, dtype=dtype,
-                                                        use_kernels=kernels), seed=0, device=dev)
+                                                        use_kernels=use_kernels), seed=0,
+                                 device=dev)
         assoc = associator.build_associator(associator.AssociatorConfig.from_cfg(
             yaml_cfg, dtype=dtype), seed=1, device=dev)
         runner = scene_parallel.SceneParallelRunner(det, assoc, cfg, n_lanes, device=dev)
         resident = _reset_peak(dev)
         _reset_counts()
-        msda.reset_counts()
         t0 = time.perf_counter()
         (stores, logs), rec = _run_lanes(runner, scenes, img_h, img_w)
         seconds = time.perf_counter() - t0
         launches = _launches(on_card)
-        counted = {k: (dict(v) if isinstance(v, dict) else v) for k, v in msda.COUNTS.items()}
-        routed = kernels and on_card
+        counted = {key: kernels.counts(key)["ms_deform_attn"] for key in kernels.GROUPS["msda"]}
+        routed = use_kernels and on_card
         want = {"LAUNCHES": calls if routed else 0, "PLAIN_CALLS": 0 if routed else calls,
                 "SAMPLES": samples}
         if {k: counted[k] for k in want} != want or (
@@ -1738,15 +1734,15 @@ def deformable_lanes_run(device: str = "cuda", shape=SLICE_SHAPE, n_lanes: int =
         if dtype == torch.float32:
             kept[run] = lanes_out
         report["runs"][run] = {
-            "dtype": str(dtype).replace("torch.", ""), "use_kernels": kernels,
+            "dtype": str(dtype).replace("torch.", ""), "use_kernels": use_kernels,
             "seconds": seconds, "step_ms": rec["ms"], "msda": counted, "launches": launches,
             "synchronizing_calls_by_step": rec["synchronizing_calls"],
             "peak_mbytes_above_resident": ((torch.cuda.max_memory_allocated() - resident) / 1e6
                                            if on_card else None),
             "n_detections_per_lane": rec["n_detections"].sum(axis=0).tolist()}
-        if kernels:
-            paths["deformable_lanes" if dtype == torch.float32 else "deformable_lanes_bf16"] = {
-                **launches, "ms_deform_attn": counted["LAUNCHES"]}
+        if use_kernels:
+            paths["deformable_lanes" if dtype == torch.float32 else "deformable_lanes_bf16"] = \
+                launches
         del det, assoc, runner, stores, logs
     worst = 0.0
     for lane, ((n, rows, ids), (n_ref, rows_ref, ids_ref)) in enumerate(
@@ -2187,7 +2183,7 @@ def scene_parallel_hard_run(scene_f1: dict, out_root: str = os.path.join("chipru
     tokens: no flash)."""
     from odam_torch import config as config_mod
     from odam_torch.data import scannet
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
     from odam_torch.runtime import processor, scene_parallel
     from odam_torch.scripts import run_processor
 
@@ -2227,7 +2223,7 @@ def scene_parallel_hard_run(scene_f1: dict, out_root: str = os.path.join("chipru
         outs = runner.run_scenes(scenes, img_h, img_w)
         seconds = time.perf_counter() - t0
         launched = _launches(dev.type == "cuda")
-        by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+        by_batch = kernels.counts("LAUNCHES_BY_BATCH")
         if dev.type == "cuda" and (by_batch["fused_attention"].get(P, 0) == 0
                                    or launched["flash_attention"]):
             raise AssertionError(f"scene_parallel_hard P={P}: launches by batch {by_batch}")
@@ -2252,7 +2248,7 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
     """``run_processor --scene_parallel 3`` on the hard split with the scene
     phase's flags, then ``eval_scan2cad``: its F1 table must equal the scene
     phase's, and fused_attention must launch at B = 3."""
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
     from odam_torch.scripts import eval_scan2cad, run_processor
 
     scene_ids, flags = _scene_flags()
@@ -2263,7 +2259,7 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
         raise AssertionError("run_processor --scene_parallel failed")
     seconds = time.perf_counter() - t0
     counts = _launches(device == "cuda")
-    by_batch = {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}
+    by_batch = kernels.counts("LAUNCHES_BY_BATCH")
     if device == "cuda" and by_batch["fused_attention"].get(n_lanes, 0) == 0:
         raise AssertionError(f"cli_scene_parallel: launches by batch {by_batch}")
     f1 = eval_scan2cad.main(["--result_dir", out_root,
@@ -2281,11 +2277,12 @@ def cli_scene_parallel_run(scene_f1: dict, out_root: str = os.path.join("chiprun
 
 def _counts_of(dev: torch.device) -> tuple[dict, dict]:
     """The kernel counters of ``dev`` as they stand: launches on the card,
-    plain calls on the CPU, and the attention's split by dtype."""
-    from odam_torch.ops import cuda_attention as ca
+    plain calls on the CPU, and both split by dtype."""
+    from odam_torch.ops import kernels
 
-    by_dtype = ca.LAUNCHES_BY_DTYPE if dev.type == "cuda" else ca.PLAIN_CALLS_BY_DTYPE
-    return _launches(dev.type == "cuda"), {k: dict(v) for k, v in by_dtype.items()}
+    on_card = dev.type == "cuda"
+    return _launches(on_card), kernels.counts("LAUNCHES_BY_DTYPE" if on_card
+                                              else "PLAIN_CALLS_BY_DTYPE")
 
 
 def _counted(dev: torch.device, fn, *args):
@@ -2295,7 +2292,7 @@ def _counted(dev: torch.device, fn, *args):
     result = fn(*args)
     after, after_dt = _counts_of(dev)
     return (result, {k: n - before[k] for k, n in after.items()},
-            {k: {d: n - before_dt[k][d] for d, n in v.items()} for k, v in after_dt.items()})
+            {k: {d: n - before_dt[k].get(d, 0) for d, n in v.items()} for k, v in after_dt.items()})
 
 
 def _run_cli(argv: list[str]) -> tuple[list[dict], dict, float]:
@@ -2472,7 +2469,7 @@ def scene_run(out_root: str = os.path.join("chiprun_out", "scene"),
         for fr in run["frames"]:
             want = {"flash_attention": 0, "fused_attention": 14 if fr["associated"] else 6,
                     "lap_solve": int(fr["associated"] and fr["exact_decode"]),
-                    "sinkhorn": int(fr["associated"])}
+                    "sinkhorn": int(fr["associated"]), "ms_deform_attn": 0}
             got = {k: fr[k] for k in want}
             if got != want:
                 raise AssertionError(f"{device} frame {fr['frame']}: attention calls {got}, "
@@ -2502,10 +2499,11 @@ def _expected_cli_calls(entry: dict, offline: bool) -> dict:
     Sinkhorn kernel once, and the LAP kernel once with the exact decode (not
     with ``--profile fast``'s greedy one)."""
     if entry.get("detect"):
-        return {"flash_attention": 0, "fused_attention": 0, "lap_solve": 0, "sinkhorn": 0}
+        return {"flash_attention": 0, "fused_attention": 0, "lap_solve": 0, "sinkhorn": 0,
+                "ms_deform_attn": 0}
     gnn = 16 if entry["associated"] else 0
     assoc = {"lap_solve": int(entry["associated"] and entry["exact_decode"]),
-             "sinkhorn": int(entry["associated"])}
+             "sinkhorn": int(entry["associated"]), "ms_deform_attn": 0}
     if offline:
         return {"flash_attention": 0, "fused_attention": gnn, **assoc}
     return {"flash_attention": 12, "fused_attention": 6 + gnn, **assoc}
@@ -2530,7 +2528,7 @@ def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device
     the history fuser is over KERNEL_MAX_BATCH, on the plain path."""
     import pickle
 
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
 
     os.makedirs(out_root, exist_ok=True)
     split = os.path.join(out_root, "split.txt")
@@ -2569,7 +2567,7 @@ def cli_full_run(out_root: str = os.path.join("chiprun_out", "cli_full"), device
               "frames": len(frames), "short_side": short_side,
               "associated_frames": sum(fr["associated"] for fr in frames),
               "tracks": len(out["tracks"]), "seconds": seconds, "scene_seconds": scene_s,
-              "launches": counts, "align_copies": dict(ca.ALIGN_COPIES)}
+              "launches": counts, "align_copies": kernels.counts("ALIGN_COPIES")}
     return report, counts
 
 
@@ -2747,7 +2745,6 @@ def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAP
 
     from odam_torch import config as config_mod
     from odam_torch.models import criterion, detr, matcher, training
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts.train_detector import synthetic_batches
 
     dev = torch.device(device)
@@ -2852,8 +2849,9 @@ def train_detector_run(device: str = "cuda", check=TRAIN_CHECK, shape=TRAIN_SHAP
                   trained_groups={name: len(ps) for name, (_, ps) in state.opt.groups.items()})
     if dev.type == "cuda":
         report["profile"] = train_profile(lambda: step(state, images, targets))
-        if any(ca.LAUNCHES.values()):
-            raise AssertionError(f"train_detector: attention kernels launched {ca.LAUNCHES}")
+        launched = {k: n for k, n in _launches().items() if k != "lap_solve" and n}
+        if launched:
+            raise AssertionError(f"train_detector: kernels launched {launched}")
     return report, launches
 
 
@@ -2867,7 +2865,6 @@ def train_assoc_run(device: str = "cuda", n_steps: int = TRAIN_STEPS["train_asso
     from odam_torch import config as config_mod
     from odam_torch.data import datasets
     from odam_torch.models import associator, training
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts.train_associator import BATCH_KEYS, synthetic_scenes
 
     dev = torch.device(device)
@@ -2946,7 +2943,6 @@ def train_cli_run(out_root: str = os.path.join("runs", "train_cli"),
     import pickle
 
     from odam_torch import config as config_mod
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts import run_processor
     from odam_torch.utils import checkpoint
 
@@ -3035,9 +3031,7 @@ def _dist_rank(report: dict, on_card: bool) -> dict:
             "grad_allreduce_floats": report["detr_train"]["trained_floats"],
             "peak_bytes_by_stage": report["peak_bytes"],
             "lanes_this_rank": lanes["lanes_this_rank"],
-            "launches_by_stage": {k: {**report[k][kind], "lap_solve": report[k]["lap"][kind],
-                                      "sinkhorn": report[k]["sinkhorn"][kind]}
-                                  for k in ("detect", "lanes")},
+            "launches_by_stage": {k: report[k][kind] for k in ("detect", "lanes")},
             "lanes_launches_by_batch": lanes["launches_by_batch"],
             "lane_rate": report.get("lane_rate")}
 
@@ -3222,7 +3216,6 @@ def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device
     6 (decoder self) a frame, all bf16."""
     import pickle
 
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts import run_tracking
 
     dev = torch.device(device)
@@ -3258,7 +3251,7 @@ def tracking_run(out_root: str = os.path.join("chiprun_out", "tracking"), device
     launched = _launches(dev.type == "cuda")
     for s in scenes:
         want = {"flash_attention": 12 * s["frames"], "fused_attention": 6 * s["frames"],
-                "lap_solve": 0, "sinkhorn": 0}
+                "lap_solve": 0, "sinkhorn": 0, "ms_deform_attn": 0}
         if s["launches"] != want:
             raise AssertionError(f"tracking {s['scene']}: launches {s['launches']}, expected {want}")
         _check_dtype(f"tracking {s['scene']}", s["launches_by_dtype"], "bfloat16")
@@ -3291,7 +3284,6 @@ def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking
 
     from odam_torch import config as config_mod
     from odam_torch.data import scannet
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts import run_processor, run_tracking
 
     args = run_tracking.build_parser().parse_args(
@@ -3314,7 +3306,7 @@ def tracking_rehearsal_run(out_root: str = os.path.join("chiprun_out", "tracking
     card, cpu = runs["card"], runs["cpu"]
     frames = len(card["stats"]["frame_ms"])
     want = {"flash_attention": 4 * frames, "fused_attention": 2 * frames, "lap_solve": 0,
-            "sinkhorn": 0}
+            "sinkhorn": 0, "ms_deform_attn": 0}
     for side, run in runs.items():
         if run["calls"] != want:
             raise AssertionError(f"tracking_rehearsal {side}: attention calls {run['calls']}, "
@@ -3364,7 +3356,6 @@ def eval_association_run(out_root: str = os.path.join("chiprun_out", "eval_assoc
     from odam_torch import config as config_mod
     from odam_torch.eval import association
     from odam_torch.models import associator, convert
-    from odam_torch.ops import cuda_attention as ca
     from odam_torch.scripts import eval_association
     from odam_torch.scripts.train_associator import synthetic_scenes
 
@@ -3401,7 +3392,7 @@ def eval_association_run(out_root: str = os.path.join("chiprun_out", "eval_assoc
         association.evaluate_scene = inner
     frames = full["TOTAL"].n_frames
     if calls != {"flash_attention": 0, "fused_attention": 16 * frames, "lap_solve": frames,
-                 "sinkhorn": frames}:
+                 "sinkhorn": frames, "ms_deform_attn": 0}:
         raise AssertionError(f"eval_association: launches {calls} over {frames} frames")
     _check_dtype("eval_association", by_dtype, "float32")
     rehearsal = ["--config_path", os.path.join(SCENE_DATA, "rehearsal.yaml"),
@@ -3570,7 +3561,7 @@ def tools_run(device: str = "cuda", out_root: str = TOOLS_DIR) -> tuple[dict, di
     holding CUDA kernel events, the crash demo within CRASH_TOL after a kill
     that landed mid-save, the sweep's card rows within SWEEP_IOU_ATOL of the
     CPU's.  Returns (report, launches by path, bench_attention's rows)."""
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
     from odam_torch.scripts import (ab_step_input, bench_attention, bench_batched_detection,
                                     bench_scene_parallel, crash_recovery_demo,
                                     lm_envelope_sweep, profile_batched_detector,
@@ -3589,8 +3580,8 @@ def tools_run(device: str = "cuda", out_root: str = TOOLS_DIR) -> tuple[dict, di
         paths[f"tools:{name}"] = _launches(device == "cuda")
         report["tools"][name] = {
             "seconds": time.perf_counter() - t0, "launches": paths[f"tools:{name}"],
-            "launches_by_dtype": {k: dict(v) for k, v in ca.LAUNCHES_BY_DTYPE.items()},
-            "launches_by_batch": {k: dict(v) for k, v in ca.LAUNCHES_BY_BATCH.items()}}
+            "launches_by_dtype": kernels.counts("LAUNCHES_BY_DTYPE"),
+            "launches_by_batch": kernels.counts("LAUNCHES_BY_BATCH")}
         return out
 
     # 1. bench_attention, f32 then bf16: errors against the f32 plain result
@@ -3614,11 +3605,11 @@ def tools_run(device: str = "cuda", out_root: str = TOOLS_DIR) -> tuple[dict, di
     shutil.rmtree(trace_dir, ignore_errors=True)
     pp = run("profile_pipeline", lambda: profile_pipeline.main(
         dev + TOOL_ARGS["profile_pipeline"] + ["--trace", trace_dir]))
-    kernels = _kernel_events(trace_dir)
-    if device == "cuda" and not kernels:
+    events = _kernel_events(trace_dir)
+    if device == "cuda" and not events:
         raise AssertionError("profile_pipeline: the trace holds no CUDA kernel event")
     report["tools"]["profile_pipeline"].update(stages_ms=pp["stages_ms"],
-                                               trace_kernel_events=kernels)
+                                               trace_kernel_events=events)
 
     # 3. ab_step_input: the three forms give the same track ids
     ab = run("ab_step_input", lambda: _with_env(TOOL_ENV["ab_step_input"], lambda: (
@@ -3751,7 +3742,7 @@ def examples_run(device: str = "cuda", out_root: str = EXAMPLES_OUT,
     from odam_torch.examples.cli_rehearsal import make_dataset, probe_detector
     from odam_torch.examples.cli_rehearsal import train as rehearsal_train
     from odam_torch.examples.closed_loop import segment_eval, segment_train
-    from odam_torch.ops import cuda_attention as ca
+    from odam_torch.ops import kernels
     from odam_torch.utils.metrics import device_banner
 
     d = {**EXAMPLE_DEPTH, **(depth or {})}
@@ -3775,7 +3766,7 @@ def examples_run(device: str = "cuda", out_root: str = EXAMPLES_OUT,
             t0 = time.perf_counter()
             out = fn()
             paths[f"examples:{name}"] = _launches(on_card)
-            by_dtype = ca.LAUNCHES_BY_DTYPE if on_card else ca.PLAIN_CALLS_BY_DTYPE
+            by_dtype = kernels.counts("LAUNCHES_BY_DTYPE" if on_card else "PLAIN_CALLS_BY_DTYPE")
             report["scripts"][name] = {
                 "seconds": time.perf_counter() - t0, "launches": paths[f"examples:{name}"],
                 "launches_by_dtype": {k: {dt: n for dt, n in v.items() if n}
@@ -3960,13 +3951,6 @@ def _rows_differ(a: dict, b: dict) -> bool:
         x.shape != y.shape or not np.array_equal(x, y) for x, y in zip(a["tracks"], b["tracks"]))
 
 
-def _plain_calls() -> dict:
-    from odam_torch.ops import cuda_attention as ca
-    from odam_torch.ops import lap, sinkhorn
-
-    return {**ca.PLAIN_CALLS, **lap.PLAIN_CALLS, **sinkhorn.PLAIN_CALLS}
-
-
 def studies_run(scene_f1: dict, out_root: str = STUDIES_OUT,
                 scene_root: str = os.path.join("chiprun_out", "scene"),
                 devices: tuple[str, str] = ("cuda", "cpu"), frames: int = STUDIES_FRAMES,
@@ -4099,16 +4083,16 @@ def studies_run(scene_f1: dict, out_root: str = STUDIES_OUT,
                 return stages, diagnose_recall.oracle_tracks(
                     pipe, STUDIES_SEED, 0.02, np.random.default_rng(7000 + STUDIES_SEED))
 
-            plain_before = _plain_calls()
+            plain_before = _launches(False)
             (stages, tracks), diag_calls, diag_dtype = timed("diagnose_recall", _counted, dev,
                                                              diagnose)
-            diag_plain = {k: n - plain_before[k] for k, n in _plain_calls().items()}
+            diag_plain = {k: n - plain_before[k] for k, n in _launches(False).items()}
 
             # 3. validate on the committed weights
-            plain_before = _plain_calls()
+            plain_before = _launches(False)
             val_card, val_calls, val_dtype = timed("validate", _counted, dev, validate.main,
                                                    ["--device", card])
-            val_plain = {k: n - plain_before[k] for k, n in _plain_calls().items()}
+            val_plain = {k: n - plain_before[k] for k, n in _launches(False).items()}
             results = {k: f.result() for k, f in futures.items()}
     finally:
         window_experiment.STREAM_FRAMES = stream
@@ -4229,7 +4213,7 @@ def main() -> int:
     lap_report, lap_rows = lap_checks()
     emit(lap_report)
     kernel_rows += lap_rows
-    msda_rows, msda_row_launches = msda_checks()
+    msda_rows = msda_checks()
     emit({"phase": "msda_checks", "cases": len(msda_rows), "all_within_tolerance": True,
           "bf16_locations_fail_the_bar": True,
           "device_ms": {f"{r['case']} {r['dtype']}": r["ms"] for r in msda_rows},
@@ -4257,19 +4241,13 @@ def main() -> int:
     emit(sp_full_report)
     paths["scene_parallel_full"] = sp_counts["float32"]
     paths["scene_parallel_full_bf16"] = sp_counts["bfloat16"]
-    for path in ("slice", "slice_bf16"):
+    for path in ("slice", "slice_bf16"):      # every kernel of the DETR step
         for name, n in paths[path].items():
-            if n == 0:
+            if n == 0 and name != "ms_deform_attn":
                 raise AssertionError(f"{name} was never launched on the {path} path")
-    from odam_torch.ops import msda
-
-    if msda.COUNTS["LAUNCHES"] != msda_row_launches:     # no DETR path samples a level
-        raise AssertionError(f"the MSDA kernel launched {msda.COUNTS['LAUNCHES']} times, its "
-                             f"rows {msda_row_launches}: a DETR path launched it")
     deformable_report, deformable_paths = deformable_lanes_run()
     emit(deformable_report)
     paths.update(deformable_paths)
-    msda_path_launches = msda.COUNTS["LAUNCHES"]       # the bf16 run's, zeroed before it
     mapping_report = mapping_run(np.random.default_rng(MAP_SEED), det_gpu, as_gpu)
     emit(mapping_report)
     emit(mapping_lm_run(det_gpu, as_gpu, mapping_report))
@@ -4348,10 +4326,9 @@ def main() -> int:
             raise AssertionError(f"the Sinkhorn kernel was never launched on the {path} path")
     tool_launches = {(r["case"], r["dtype"], f"{col}_attention"): r[f"{col}_launches"]
                      for r in attn_rows for col in ("fused", "flash")}
-    if msda.COUNTS["LAUNCHES"] != msda_path_launches:
-        raise AssertionError("a path after deformable_lanes launched the MSDA kernel")
-    for counts in paths.values():       # none but the deformable paths launched it (above)
-        counts.setdefault("ms_deform_attn", 0)
+    for path, counts in paths.items():      # no DETR path samples a level
+        if counts["ms_deform_attn"] and not path.startswith("deformable_lanes"):
+            raise AssertionError(f"the MSDA kernel launched on the {path} path: {counts}")
     for row in kernel_rows:
         if not row["ms"] > row["bound_ms"]:
             raise AssertionError(f"{row['name']} {row.get('case')}: {row['ms']} ms at or "

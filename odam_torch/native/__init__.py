@@ -1,46 +1,20 @@
-"""The host C++ superquadric sampler, loaded with ctypes.
+"""The host C++ superquadric sampler, called through ctypes.
 
 Counterpart of ``odam_tpu/native``, with its own copy of ``sq_sampler.cpp``
 (equal-distance (eta, omega) sampling after Pilu & Fisher; the reference's
 Cython/C++ sampler).  :func:`sample_sq_batch` is the host-side check of the
-device sampler and a fast CPU path for tooling.  The library is compiled
-with ``g++`` at first use into ``odam_torch/_build/``, keyed by a hash of
-the source (:mod:`odam_torch.ops.build`), not next to the source.
+device sampler and a fast CPU path for tooling.  The library
+(:data:`odam_torch.ops.kernels.NATIVE`) is compiled with ``g++`` at first
+use into ``odam_torch/_build/``, keyed by a hash of the source, not next to
+the source.
 """
 from __future__ import annotations
 
 import ctypes
-import shutil
-import threading
-from pathlib import Path
 
 import numpy as np
 
-from ..ops import build
-from ..utils import metrics
-
-SOURCES = (Path(__file__).with_name("sq_sampler.cpp"),)
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-BUILD_INFO: dict = {}
-metrics.register_info("build", {"native": BUILD_INFO})
-_lock = threading.Lock()
-_lib = None
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: the native sampler is built on first use")
-            lib = ctypes.CDLL(str(build.build_library("odam_native", SOURCES, BUILD_INFO,
-                                                      gxx, GXX_FLAGS)))
-            fp = ctypes.POINTER(ctypes.c_float)
-            lib.odam_sample_sq_batch.restype = ctypes.c_int
-            lib.odam_sample_sq_batch.argtypes = [fp, fp] + [ctypes.c_int] * 6 + [fp, fp]
-            _lib = lib
-    return _lib
+from ..ops.kernels import NATIVE
 
 
 def sample_sq_batch(scales: np.ndarray, epsilons: np.ndarray,
@@ -58,7 +32,6 @@ def sample_sq_batch(scales: np.ndarray, epsilons: np.ndarray,
     Returns:
         (etas [B, M, N], omegas [B, M, N]) float32.
     """
-    lib = load_library()
     scales = np.ascontiguousarray(scales, np.float32)
     epsilons = np.ascontiguousarray(epsilons, np.float32)
     if scales.ndim != 3 or scales.shape[-1] != 3 or epsilons.shape != scales.shape[:2] + (2,):
@@ -68,9 +41,7 @@ def sample_sq_batch(scales: np.ndarray, epsilons: np.ndarray,
     etas = np.empty((B, M, n_samples), np.float32)
     omegas = np.empty((B, M, n_samples), np.float32)
     fp = ctypes.POINTER(ctypes.c_float)
-    rc = lib.odam_sample_sq_batch(
-        scales.ctypes.data_as(fp), epsilons.ctypes.data_as(fp), B, M, n_samples, grid, seed,
-        1 if deterministic else 0, etas.ctypes.data_as(fp), omegas.ctypes.data_as(fp))
-    if rc != 0:
-        raise RuntimeError(f"odam_sample_sq_batch failed with code {rc}")
+    NATIVE.call("odam_sample_sq_batch", scales.ctypes.data_as(fp), epsilons.ctypes.data_as(fp),
+                B, M, n_samples, grid, seed, 1 if deterministic else 0,
+                etas.ctypes.data_as(fp), omegas.ctypes.data_as(fp))
     return etas, omegas

@@ -1,1 +1,1 @@
-"""Attention and LAP kernels with their builder, optimal transport, assignment and surface sampling."""
+"""Attention, LAP, Sinkhorn and MSDA kernel wrappers with the seam that builds, launches and counts them (kernels), assignment and surface sampling."""

@@ -26,70 +26,27 @@ model that trains is built with ``use_kernels=False`` and takes the plain
 path of :func:`odam_torch.ops.attention.mha_core`, as JAX trains without
 ``use_pallas``.
 
-On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call in
-``PLAIN_CALLS``; on a CUDA tensor it launches its kernel, counts the launch in
-``LAUNCHES``, or raises.  ``LAUNCHES_BY_DTYPE`` and ``PLAIN_CALLS_BY_DTYPE``
-split the same counts by the dtype of q ("float32" or "bfloat16"), so a run
-can show which instantiation of a kernel it launched, and
-``LAUNCHES_BY_BATCH`` splits the launches by their batch B.  There is no
-fallback from one to the other.  The kernels stage K/V with 16-byte
-``cp.async`` copies: a q, k or v whose pointer or strides are not 16-byte
-aligned is copied first, and the copy is counted in ``ALIGN_COPIES``.
+On a CPU tensor a wrapper runs :func:`attention_plain` and counts the call as
+a plain call; on a CUDA tensor it launches its kernel or raises.  There is
+no fallback from one to the other.  The counts are group ``attention`` of
+:mod:`.kernels`, in its layout (by the dtype of q, "float32" or
+"bfloat16"), with two extras: ``LAUNCHES_BY_BATCH`` splits a kernel's
+launches by their batch B, and ``ALIGN_COPIES`` counts copies: the kernels
+stage K/V with 16-byte ``cp.async`` copies, so a q, k or v whose pointer or
+strides are not 16-byte aligned is copied first.
 
-The library is built at first use with ``nvcc`` (``-gencode
-arch=compute_90a,code=sm_90a``) into ``odam_torch/_build/``, keyed by a hash
-of the sources (:mod:`.build`), and loaded with ctypes.
+The library (:data:`.kernels.ATTENTION`) is built at first use with
+``nvcc`` (``-gencode arch=compute_90a,code=sm_90a``) into
+``odam_torch/_build/``, keyed by a hash of the sources.
 """
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
-
 import torch
 
-from ..utils import metrics
-from . import build
+from .kernels import KERNELS
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (16, 32, 64)
-
-SOURCES = (build.PKG / "csrc" / "attention.cu",)
-
-# Launch counts of the CUDA kernels, and calls of the plain versions that a
-# wrapper made for CPU tensors (the same routing, observable in CPU tests).
-LAUNCHES = {"fused_attention": 0, "flash_attention": 0}
-PLAIN_CALLS = {"fused_attention": 0, "flash_attention": 0}
-LAUNCHES_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in LAUNCHES}
-PLAIN_CALLS_BY_DTYPE = {name: {"float32": 0, "bfloat16": 0} for name in PLAIN_CALLS}
-LAUNCHES_BY_BATCH: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
-# Copies a wrapper made of a q, k or v that cp.async could not read as it was.
-ALIGN_COPIES = {"fused_attention": 0, "flash_attention": 0}
-
-_lib = None
-BUILD_INFO: dict = {}
-
-
-def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS, ALIGN_COPIES):
-        for name in counts:
-            counts[name] = 0
-    for counts in (LAUNCHES_BY_DTYPE, PLAIN_CALLS_BY_DTYPE):
-        for by_dtype in counts.values():
-            for dtype in by_dtype:
-                by_dtype[dtype] = 0
-    for by_batch in LAUNCHES_BY_BATCH.values():
-        by_batch.clear()
-
-
-metrics.register_counters("attention", {
-    "LAUNCHES": LAUNCHES, "PLAIN_CALLS": PLAIN_CALLS, "LAUNCHES_BY_DTYPE": LAUNCHES_BY_DTYPE,
-    "PLAIN_CALLS_BY_DTYPE": PLAIN_CALLS_BY_DTYPE, "LAUNCHES_BY_BATCH": LAUNCHES_BY_BATCH,
-    "ALIGN_COPIES": ALIGN_COPIES}, reset_counts)
-metrics.register_info("build", {"attention": BUILD_INFO})
-
-
-def _dtype_name(x: torch.Tensor) -> str:
-    return str(x.dtype).replace("torch.", "")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,24 +62,6 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
     attn = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v.float()).to(q.dtype)
-
-
-def build_library() -> Path:
-    """Compile the kernels into a shared library (cached by source hash)."""
-    return build.build_library("odam_attention", SOURCES, BUILD_INFO)
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
-        for name in ("odam_fused_attention", "odam_flash_attention"):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _check(q, k, v, key_padding_mask) -> None:
@@ -163,11 +102,11 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
         raise ValueError(f"{name}: q, k, v on different devices")
     if B * H > 65535:
         raise ValueError(f"{name}: B * H = {B * H} exceeds the grid's 65535")
-    qkv = []
+    kernel, qkv = KERNELS[name], []
     for x in (q, k, v):
         if not _aligned(x):
             x = x.clone(memory_format=torch.contiguous_format)
-            ALIGN_COPIES[name] += 1
+            kernel.add("ALIGN_COPIES")
         qkv.append(x)
     q, k, v = qkv
     if max(x.numel() for x in (q, k, v)) >= 2 ** 31:
@@ -176,22 +115,12 @@ def _launch(name: str, q, k, v, key_padding_mask) -> torch.Tensor:
     if key_padding_mask is not None:
         mask = key_padding_mask.to(q.device).contiguous()
     out = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
-    fn = getattr(load_library(), f"odam_{name}")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            0 if q.dtype == torch.float32 else 1, B, H, Lq, Lk, dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            0 if mask is None else mask.stride(0))
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_DTYPE[name][_dtype_name(q)] += 1
-    LAUNCHES_BY_BATCH[name][B] = LAUNCHES_BY_BATCH[name].get(B, 0) + 1
+    kernel.launch(q.device, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if mask is None else mask.data_ptr(), out.data_ptr(),
+                  0 if q.dtype == torch.float32 else 1, B, H, Lq, Lk, dh,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                  0 if mask is None else mask.stride(0))
+    kernel.add("LAUNCHES_BY_BATCH", at=B)
     return out
 
 
@@ -200,8 +129,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-pass softmax attention over slabs of 256 keys: [B, Lq, H, dh] -> [B, Lq, H, dh]."""
     _check(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
-        PLAIN_CALLS["fused_attention"] += 1
-        PLAIN_CALLS_BY_DTYPE["fused_attention"][_dtype_name(q)] += 1
+        KERNELS["fused_attention"].plain(q.dtype)
         return attention_plain(q, k, v, key_padding_mask)
     return _launch("fused_attention", q, k, v, key_padding_mask)
 
@@ -211,7 +139,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streaming (online-softmax) attention: [B, Lq, H, dh] -> [B, Lq, H, dh]."""
     _check(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
-        PLAIN_CALLS["flash_attention"] += 1
-        PLAIN_CALLS_BY_DTYPE["flash_attention"][_dtype_name(q)] += 1
+        KERNELS["flash_attention"].plain(q.dtype)
         return attention_plain(q, k, v, key_padding_mask)
     return _launch("flash_attention", q, k, v, key_padding_mask)

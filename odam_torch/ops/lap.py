@@ -10,10 +10,11 @@ C <= 256 (each lane's columns in registers, the cost staged in shared
 memory), the ``shared`` route (all state in shared memory) above.  Both
 compute JAX's solver step for step, with the same float32 arithmetic and
 tie-breaks; their plain version is the host solver
-:func:`_solve_square_leq`, which :func:`solve` runs for a CPU tensor (each
-call counted in ``PLAIN_CALLS``).  On a CUDA tensor a kernel runs, each
-launch counted in ``LAUNCHES`` and by route in ``ROUTE_LAUNCHES``, or the
-call raises: there is no fallback.
+:func:`_solve_square_leq`, which :func:`solve` runs for a CPU tensor.  On a
+CUDA tensor a kernel runs or the call raises: there is no fallback.  Both
+are counted as kernel ``lap_solve`` in group ``lap`` of :mod:`.kernels`
+(the library :data:`.kernels.LAP`), with the launches by route in the extra
+``ROUTE_LAUNCHES``.
 
 Around the solver, :func:`masked_assignment`, :func:`match_by_score` and
 :func:`linear_sum_assignment` are batched over leading axes and written as
@@ -24,58 +25,16 @@ plain tensor code.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils import metrics
-from . import build
+from .kernels import KERNELS
 
 _BIG_COST = 1e6
-SOURCES = (build.PKG / "csrc" / "lap.cu",)
 SMEM_LIMIT = 232448            # dynamic shared memory a block may use on the H100
 REGISTER_K = (1, 2, 4, 8)      # columns a lane of the registers route: C <= 32 K
-
-# Launches of the CUDA kernels (all, and by route), and calls of their plain
-# version that solve() made for CPU tensors.
-LAUNCHES = {"lap_solve": 0}
-ROUTE_LAUNCHES = {"registers": 0, "shared": 0}
-PLAIN_CALLS = {"lap_solve": 0}
-
-_lib = None
-BUILD_INFO: dict = {}
-
-
-def reset_counts() -> None:
-    LAUNCHES["lap_solve"] = 0
-    PLAIN_CALLS["lap_solve"] = 0
-    for route in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[route] = 0
-
-
-metrics.register_counters("lap", {"LAUNCHES": LAUNCHES, "ROUTE_LAUNCHES": ROUTE_LAUNCHES,
-                                  "PLAIN_CALLS": PLAIN_CALLS}, reset_counts)
-metrics.register_info("build", {"lap": BUILD_INFO})
-
-
-def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument and result types of the library's two entry points."""
-    lib.odam_lap_solve.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                                   + [ctypes.c_longlong, ctypes.c_void_p])
-    lib.odam_lap_solve_regs.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                                        + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                                        + [ctypes.c_void_p])
-    lib.odam_lap_solve.restype = lib.odam_lap_solve_regs.restype = ctypes.c_int
-    return lib
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = bind_library(ctypes.CDLL(str(build.build_library("odam_lap", SOURCES, BUILD_INFO))))
-    return _lib
 
 
 def smem_bytes(R: int, C: int) -> int:
@@ -187,7 +146,7 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"solve takes R <= C, got [{R}, {C}]: solve the transpose")
     cost = cost.float()
     if cost.device.type == "cpu":
-        PLAIN_CALLS["lap_solve"] += 1
+        KERNELS["lap_solve"].plain(cost.dtype)
         flat = cost.reshape(-1, R, C)
         out = torch.stack([_solve_square_leq(c) for c in flat]) if len(flat) else \
             torch.empty((0, R), dtype=torch.int32)
@@ -201,17 +160,13 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"solve: {S} problems exceed the grid")
     out = torch.empty((S, R), dtype=torch.int32, device=cost.device)
     if S and R:
-        with torch.cuda.device(cost.device):
-            lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
-            if p.route == "registers":
-                err = lib.odam_lap_solve_regs(flat.data_ptr(), out.data_ptr(), S, R, C, R * C,
-                                              p.K, p.staged_rows, stream)
-            else:
-                err = lib.odam_lap_solve(flat.data_ptr(), out.data_ptr(), S, R, C, R * C, stream)
-        if err != 0:
-            raise RuntimeError(f"lap_solve kernel launch failed ({p.route}): cudaError {err}")
-        LAUNCHES["lap_solve"] += 1
-        ROUTE_LAUNCHES[p.route] += 1
+        kernel, args = KERNELS["lap_solve"], (flat.data_ptr(), out.data_ptr(), S, R, C, R * C)
+        if p.route == "registers":
+            kernel.launch(cost.device, cost.dtype, *args, p.K, p.staged_rows,
+                          entry="odam_lap_solve_regs")
+        else:
+            kernel.launch(cost.device, cost.dtype, *args)
+        kernel.add("ROUTE_LAUNCHES", at=p.route)
     return out.reshape(*lead, R)
 
 

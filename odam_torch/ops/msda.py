@@ -31,44 +31,26 @@ which autograd can differentiate.  The kernel has no backward, so the
 kernel route raises, on any device, when grad mode is on and an input
 requires grad: training builds the model with ``use_kernels=False``.
 
-Each call runs inside the span ``odam.msda``.  The counters (group ``msda``
-of :func:`odam_torch.utils.metrics.snapshot`): ``LAUNCHES`` of the kernel,
-``LAUNCHES_BY_DTYPE`` by the value's dtype, ``PLAIN_CALLS`` of the plain
-version, and ``SAMPLES``, B x Lq x H x L x P summed over every call.
-
-The library is built at first use with ``nvcc`` into ``odam_torch/_build/``
-(:mod:`.build`) and loaded with ctypes.
+Each call runs inside the span ``odam.msda``, and is counted as kernel
+``ms_deform_attn`` in group ``msda`` of :mod:`.kernels` (by the value's
+dtype), with the extra ``SAMPLES``: B x Lq x H x L x P summed over every
+call.  The library (:data:`.kernels.MSDA`) is built at first use with
+``nvcc`` into ``odam_torch/_build/``.
 """
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..utils import metrics
-from . import build
+from .kernels import KERNELS
 
-SOURCES = (build.PKG / "csrc" / "msda.cu",)
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_POINTS = (1, 2, 4, 8)
 MAX_LEVELS = 8
-
-COUNTS = {"LAUNCHES": 0, "PLAIN_CALLS": 0,
-          "LAUNCHES_BY_DTYPE": {"float32": 0, "bfloat16": 0}, "SAMPLES": 0}
-BUILD_INFO: dict = {}
-_lib = None
-
-metrics.register_counters("msda", COUNTS)
-metrics.register_info("build", {"msda": BUILD_INFO})
-
-
-def reset_counts() -> None:
-    COUNTS.update(LAUNCHES=0, PLAIN_CALLS=0, SAMPLES=0)
-    for dtype in COUNTS["LAUNCHES_BY_DTYPE"]:
-        COUNTS["LAUNCHES_BY_DTYPE"][dtype] = 0
 
 
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[tuple[int, int]],
@@ -91,23 +73,6 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[tuple[int
         part = (sampled * w_l).sum(-1)
         out = part if out is None else out + part
     return out.reshape(B, H, dh, Lq).permute(0, 3, 1, 2).to(value.dtype)
-
-
-def build_library() -> Path:
-    """Compile the kernel into a shared library (cached by source hash)."""
-    return build.build_library("odam_msda", SOURCES, BUILD_INFO)
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.odam_ms_deform_attn
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _check(value, spatial_shapes, level_start, locations, weights) -> None:
@@ -151,18 +116,10 @@ def _launch(value, spatial_shapes, level_start, locations, weights) -> torch.Ten
     hs = ints(*(h for h, _ in spatial_shapes))
     ws = ints(*(w for _, w in spatial_shapes))
     starts = ints(*level_start)
-    args = (value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            0 if value.dtype == torch.float32 else 1, B, S, Lq, H, dh, L, P, hs, ws, starts)
-    fn = load_library().odam_ms_deform_attn
-    if value.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(value.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ms_deform_attn kernel launch failed: cudaError {err}")
-    COUNTS["LAUNCHES"] += 1
-    COUNTS["LAUNCHES_BY_DTYPE"][str(value.dtype).replace("torch.", "")] += 1
+    KERNELS["ms_deform_attn"].launch(
+        value.device, value.dtype, value.data_ptr(), locations.data_ptr(), weights.data_ptr(),
+        out.data_ptr(), 0 if value.dtype == torch.float32 else 1, B, S, Lq, H, dh, L, P, hs, ws,
+        starts)
     return out
 
 
@@ -174,7 +131,8 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[tuple[int, int]
         spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
         level_start = tuple(int(s) for s in level_start)
         _check(value, spatial_shapes, level_start, locations, weights)
-        COUNTS["SAMPLES"] += weights.numel()
+        kernel = KERNELS["ms_deform_attn"]
+        kernel.add("SAMPLES", weights.numel())
         if use_kernels and torch.is_grad_enabled() and any(
                 x.requires_grad for x in (value, locations, weights)):
             raise RuntimeError(
@@ -183,5 +141,5 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[tuple[int, int]
                 "torch.no_grad()")
         if use_kernels and value.device.type == "cuda":
             return _launch(value, spatial_shapes, level_start, locations, weights)
-        COUNTS["PLAIN_CALLS"] += 1
+        kernel.plain(value.dtype)
         return ms_deform_attn_plain(value, spatial_shapes, level_start, locations, weights)

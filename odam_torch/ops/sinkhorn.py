@@ -11,45 +11,19 @@ kernel has no backward, so on CUDA tensors a call that needs a gradient
 raises: a model that trains is built with ``use_kernels=False``, and
 :class:`odam_torch.models.associator.Associator` then calls
 :func:`log_optimal_transport_plain` itself.  On CPU tensors the function
-runs the plain version, which autograd differentiates.  The counters
-(group ``sinkhorn`` of :func:`odam_torch.utils.metrics.snapshot`):
-``LAUNCHES`` of the kernel and ``PLAIN_CALLS`` of the plain version through
+runs the plain version, which autograd differentiates.  Both are counted as
+kernel ``sinkhorn`` in group ``sinkhorn`` of :mod:`.kernels` (the library
+:data:`.kernels.SINKHORN`), the plain calls only through
 :func:`log_optimal_transport`.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..utils import metrics
-from . import build
+from .kernels import KERNELS
 
 _NEG = -1e9
-SOURCES = (build.PKG / "csrc" / "sinkhorn.cu",)
 _TOO_LARGE = -1                # odam_sinkhorn's code: Z does not fit one block
-
-LAUNCHES = {"sinkhorn": 0}
-PLAIN_CALLS = {"sinkhorn": 0}
-BUILD_INFO: dict = {}
-_lib = None
-
-metrics.register_counters("sinkhorn", {"LAUNCHES": LAUNCHES, "PLAIN_CALLS": PLAIN_CALLS})
-metrics.register_info("build", {"sinkhorn": BUILD_INFO})
-
-
-def reset_counts() -> None:
-    LAUNCHES["sinkhorn"] = PLAIN_CALLS["sinkhorn"] = 0
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build.build_library("odam_sinkhorn", SOURCES, BUILD_INFO)))
-        lib.odam_sinkhorn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.odam_sinkhorn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def log_sinkhorn(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
@@ -120,18 +94,13 @@ def _launch(scores: torch.Tensor, alpha: torch.Tensor, iters: int,
     a = alpha.to(device=scores.device, dtype=torch.float32).reshape(1).contiguous()
     out = torch.empty((S, M + 1, N + 1), dtype=torch.float32, device=scores.device)
     if S:
-        with torch.cuda.device(scores.device):
-            lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
-            err = lib.odam_sinkhorn(flat.data_ptr(), *(0 if m is None else m.data_ptr()
-                                                       for m in masks),
-                                    a.data_ptr(), out.data_ptr(), S, M, N, max(int(iters), 0),
-                                    stream)
+        err = KERNELS["sinkhorn"].launch(
+            scores.device, scores.dtype, flat.data_ptr(),
+            *(0 if m is None else m.data_ptr() for m in masks), a.data_ptr(), out.data_ptr(),
+            S, M, N, max(int(iters), 0), returns=(_TOO_LARGE,))
         if err == _TOO_LARGE:
             raise ValueError(f"sinkhorn: the Z [{M + 1}, {N + 1}] of a [{M}, {N}] problem, its "
                              "potentials and marginals do not fit one block's shared memory")
-        if err != 0:
-            raise RuntimeError(f"sinkhorn kernel launch failed: cudaError {err}")
-        LAUNCHES["sinkhorn"] += 1
     return out.reshape(*batch, M + 1, N + 1)
 
 
@@ -157,5 +126,5 @@ def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor, iters: int 
                 "Build the model with use_kernels=False to train it, or call it under "
                 "torch.no_grad()")
         return _launch(scores, alpha, iters, row_mask, col_mask)
-    PLAIN_CALLS["sinkhorn"] += 1
+    KERNELS["sinkhorn"].plain(scores.dtype)
     return log_optimal_transport_plain(scores, alpha, iters, row_mask, col_mask)

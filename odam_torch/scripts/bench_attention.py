@@ -56,7 +56,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     counted while its column ran)."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    from ..ops import attention, cuda_attention as ca
+    from ..ops import attention, cuda_attention as ca, kernels
     from ..utils.metrics import device_banner, time_ms
 
     if dev.type == "cuda":
@@ -94,11 +94,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
                 out = calls[col]().float()
                 row[f"err_{col}"] = float((out - ref).abs().max())
             for col, fn in calls.items():
-                before = dict(ca.LAUNCHES)
+                before = kernels.counts("LAUNCHES")
                 row[f"{col}_ms"] = time_ms(fn, args.iters, dev)
                 if col in ("fused", "flash"):
-                    row[f"{col}_launches"] = ca.LAUNCHES[f"{col}_attention"] - before[
-                        f"{col}_attention"]
+                    kernel = f"{col}_attention"
+                    row[f"{col}_launches"] = kernels.counts("LAUNCHES")[kernel] - before[kernel]
         rows.append(row)
         print(f"{name:>18}: plain {row['plain_ms']:7.3f} ms | sdpa {row['sdpa_ms']:7.3f} ms | "
               f"fused {row['fused_ms']:7.3f} ms (err {row['err_fused']:.2e}) | "

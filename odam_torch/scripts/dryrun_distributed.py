@@ -287,26 +287,14 @@ def solve_inputs(size: str, device):
             t(np.broadcast_to(P, (O, V, 3, 4))), t(optimize_mask, torch.bool)), S
 
 
-def _reset_counts() -> None:
-    from ..ops import cuda_attention as ca
-    from ..ops import lap, sinkhorn
-
-    ca.reset_counts()
-    lap.reset_counts()
-    sinkhorn.reset_counts()
-
-
 def _counts() -> dict:
-    from ..ops import cuda_attention as ca
-    from ..ops import lap, sinkhorn
+    """Every kernel's launches and plain calls, and the attention launches by
+    batch, since the stage zeroed them (``kernels.zero_counts``)."""
+    from ..ops import kernels
 
-    return {"launches": dict(ca.LAUNCHES), "plain_calls": dict(ca.PLAIN_CALLS),
-            "lap": {"launches": lap.LAUNCHES["lap_solve"],
-                    "plain_calls": lap.PLAIN_CALLS["lap_solve"]},
-            "sinkhorn": {"launches": sinkhorn.LAUNCHES["sinkhorn"],
-                         "plain_calls": sinkhorn.PLAIN_CALLS["sinkhorn"]},
+    return {"launches": kernels.counts("LAUNCHES"), "plain_calls": kernels.counts("PLAIN_CALLS"),
             "launches_by_batch": {k: {str(b): n for b, n in v.items()}
-                                  for k, v in ca.LAUNCHES_BY_BATCH.items()}}
+                                  for k, v in kernels.counts("LAUNCHES_BY_BATCH").items()}}
 
 
 def _sync(device) -> None:
@@ -411,6 +399,7 @@ def _allreduce_ms(n: int, device, mesh, reps: int = 5) -> list[float]:
 
 
 def _stage_detect(size, device, mesh, report) -> dict:
+    from ..ops import kernels
     from ..runtime import offline
     from ..runtime import processor as proc_mod
 
@@ -423,7 +412,7 @@ def _stage_detect(size, device, mesh, report) -> dict:
     K = np.array([[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]], np.float32)
     det = offline.BatchedDetector(detr, proc_mod.PipelineConfig(detect_threshold=0.0),
                                   batch_size=B, mesh=mesh, device=device)
-    _reset_counts()
+    kernels.zero_counts()
     dets = det.detect_frames(frames, K, float(w), float(h))
     _sync(device)
     report["detect"] = {"frames": len(frames), "batch": B, **_counts()}
@@ -466,6 +455,7 @@ def _stage_collectives(size, device, mesh, report) -> dict:
 
 
 def _stage_lanes(size, device, mesh, report) -> dict:
+    from ..ops import kernels
     from ..runtime import scene_parallel
 
     detr, assoc, cfg = lane_models(size, device)
@@ -473,7 +463,7 @@ def _stage_lanes(size, device, mesh, report) -> dict:
     scenes = lane_scenes(S["lane_lengths"], S["lane_image"])
     runner = scene_parallel.SceneParallelRunner(detr, assoc, cfg, S["n_lanes"], device=device,
                                                 mesh=mesh)
-    _reset_counts()
+    kernels.zero_counts()
     t0 = time.perf_counter()
     outs = runner.run_scenes(scenes, *map(float, S["lane_image"]))
     _sync(device)

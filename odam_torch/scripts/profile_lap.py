@@ -2,9 +2,9 @@
 
     python -m odam_torch.scripts.profile_lap [--out PATH] [--sass PATH]
 
-Builds ``odam_torch/csrc/lap.cu`` as the port builds it, and once more with
-``-DODAM_LAP_CLOCK``, a dev build whose kernels add ``clock64()`` stamps by
-part.  It runs the LAP cases of ``chip_smoke.py``'s ``lap`` phase (the same
+Builds ``odam_torch/csrc/lap.cu`` as the port builds it (the kernel seam's
+``LAP`` library), and once more with ``-DODAM_LAP_CLOCK``, a variant of it
+whose kernels add ``clock64()`` stamps by part.  It runs the LAP cases of ``chip_smoke.py``'s ``lap`` phase (the same
 seeded inputs, :func:`lap_cases`) on every route of the library that takes
 the case:
 
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import build, lap
+from ..ops import kernels, lap
 
 CLOCK_PARTS = ("init", "columns", "pick", "next", "row")     # lap.cu's kClk* order
 CLOCK_SLOTS = len(CLOCK_PARTS) + 3                            # + total, sweeps, rows
@@ -126,26 +126,25 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def launcher(lib: ctypes.CDLL, route: str, cost: torch.Tensor, out: torch.Tensor):
+def launcher(lib: kernels.Library, route: str, cost: torch.Tensor, out: torch.Tensor):
     """A call that launches ``route``'s kernel of ``lib`` on [S, R, C] into
-    ``out``, or None if the route does not take the shape."""
+    ``out`` (uncounted; it raises if the launch fails), or None if the route
+    does not take the shape."""
     S, R, C = cost.shape
-    stream = lambda: torch.cuda.current_stream().cuda_stream     # noqa: E731
+    args = (cost.data_ptr(), out.data_ptr(), S, R, C, R * C)
     if route == "shared":
         if lap.smem_bytes(R, C) > lap.SMEM_LIMIT:
             return None
-        return lambda: lib.odam_lap_solve(cost.data_ptr(), out.data_ptr(), S, R, C, R * C,
-                                          stream())
+        return lambda: lib.call("odam_lap_solve", *args, device=cost.device)
     p = lap.plan(R, C)
     if p.route != "registers":
         return None
-    return lambda: lib.odam_lap_solve_regs(cost.data_ptr(), out.data_ptr(), S, R, C, R * C,
-                                           p.K, p.staged_rows, stream())
+    return lambda: lib.call("odam_lap_solve_regs", *args, p.K, p.staged_rows, device=cost.device)
 
 
 def sass_counts(library: str, listing: str | None) -> dict:
     """Opcode counts of each kernel in the library's SASS."""
-    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc_path()),
+    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kernels.nvcc_path()),
                                                     "cuobjdump")
     text = subprocess.run([exe, "-sass", library], capture_output=True, text=True,
                           check=True).stdout
@@ -183,14 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     dev = resolve_device("cuda")
-    lib = lap.load_library()
-    info: dict = {}
-    clock_lib = lap.bind_library(ctypes.CDLL(str(build.build_library(
-        "odam_lap_clock", lap.SOURCES, info, flags=build.NVCC_FLAGS + ("-DODAM_LAP_CLOCK",)))))
-    clock_lib.odam_lap_clock_target.argtypes = [ctypes.c_void_p]
+    lib = kernels.LAP
+    clock_lib = lib.variant("odam_lap_clock", ("-DODAM_LAP_CLOCK",),
+                            {"odam_lap_clock_target": [ctypes.c_void_p]})
     clock = torch.zeros(CLOCK_SLOTS, dtype=torch.int64, device=dev)
-    if clock_lib.odam_lap_clock_target(clock.data_ptr()) != 0:
-        raise RuntimeError("odam_lap_clock_target failed")
+    clock_lib.call("odam_lap_clock_target", clock.data_ptr())
 
     rng = np.random.default_rng(args.seed)
     rows = []
@@ -203,15 +199,13 @@ def main(argv: list[str] | None = None) -> dict:
             run = launcher(lib, route, gpu, out)
             if run is None:
                 continue
-            if run() != 0:
-                raise RuntimeError(f"{route} {label}: launch failed")
+            run()
             torch.cuda.synchronize()
             if not torch.equal(out.cpu(), want):
                 raise AssertionError(f"{route} {label}: assignments differ from the plain solver")
             ms = graph_ms(run)
             clock.zero_()
-            if launcher(clock_lib, route, gpu, out)() != 0:
-                raise RuntimeError(f"{route} {label}: clock launch failed")
+            launcher(clock_lib, route, gpu, out)()
             torch.cuda.synchronize()
             cyc = clock.cpu().tolist()
             total, sweeps0, rows0 = cyc[len(CLOCK_PARTS):]
@@ -228,9 +222,9 @@ def main(argv: list[str] | None = None) -> dict:
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
-        "ptxas": [ln.strip() for ln in lap.BUILD_INFO.get("ptxas", "").splitlines()
+        "ptxas": [ln.strip() for ln in lib.info.get("ptxas", "").splitlines()
                   if "registers" in ln or "spill" in ln or "Compiling" in ln],
-        "sass": sass_counts(lap.BUILD_INFO["path"], args.sass),
+        "sass": sass_counts(lib.info["path"], args.sass),
         "rows": rows}
     print(json.dumps(report), flush=True)
     if args.out:

@@ -8,6 +8,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 from odam_torch.models import associator as t_assoc
+from odam_torch.ops import kernels
 from odam_torch.ops import lap as t_lap
 from odam_torch.ops import sinkhorn as t_sink
 from odam_tpu.models import associator as j_assoc
@@ -72,7 +73,7 @@ def test_associator_matches(decode, seed, n_tracks, n_dets):
     tmodel = t_assoc.build_associator(t_assoc.AssociatorConfig(**cfg_kw),
                                       flax_params=jax.tree.map(np.asarray, params),
                                       device="cpu")
-    before = t_lap.PLAIN_CALLS["lap_solve"]
+    before = kernels.counts("PLAIN_CALLS")["lap_solve"]
     with torch.no_grad():
         to = tmodel(torch.from_numpy(tracks), torch.from_numpy(tm), torch.from_numpy(dets),
                     torch.from_numpy(dm), 0.1)
@@ -84,7 +85,7 @@ def test_associator_matches(decode, seed, n_tracks, n_dets):
     np.testing.assert_array_equal(to.matches.numpy(), np.asarray(jo.matches))
     assert (to.matches.numpy() >= 0).sum() > 0
     # the exact decode solves the whole batch in one call
-    assert t_lap.PLAIN_CALLS["lap_solve"] - before == (decode == "exact")
+    assert kernels.counts("PLAIN_CALLS")["lap_solve"] - before == (decode == "exact")
 
 
 def _objective(score, track_for_det):

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from odam_torch.ops import attention as t_attn
-from odam_torch.ops import cuda_attention
+from odam_torch.ops import cuda_attention, kernels
 from odam_tpu.ops import attention as j_attn
 from odam_tpu.ops import pallas_attention
 from torch_threads import one_torch_thread  # noqa: F401
@@ -72,15 +72,15 @@ def test_mha_core_routing_and_parity(B, Lk, expect, dh):
     H, Lq = 2, 12
     q, k, v, kpm = _inputs(B * Lk + dh, B, Lq, Lk, H, dh, 9)
     ref = j_attn.mha_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H, jnp.asarray(kpm))
-    cuda_attention.reset_counts()
+    kernels.zero_counts()
     out = t_attn.mha_core(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), H,
                           torch.from_numpy(kpm))
     if B <= t_attn.KERNEL_MAX_BATCH:
-        want = {name: int(name == expect) for name in cuda_attention.PLAIN_CALLS}
+        want = {name: int(name == expect) for name in kernels.KERNELS}
     else:
-        want = {name: 0 for name in cuda_attention.PLAIN_CALLS}
-    assert cuda_attention.PLAIN_CALLS == want
-    assert cuda_attention.LAUNCHES == {name: 0 for name in cuda_attention.LAUNCHES}
+        want = {name: 0 for name in kernels.KERNELS}
+    assert kernels.counts("PLAIN_CALLS") == want
+    assert kernels.counts("LAUNCHES") == {name: 0 for name in kernels.KERNELS}
     atol = FLASH_ATOL if Lk >= t_attn.FLASH_MIN_KEYS else FUSED_ATOL
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
 

@@ -19,7 +19,7 @@ import torch
 
 from odam_torch.models import associator as t_assoc
 from odam_torch.models import detr as t_detr
-from odam_torch.ops import cuda_attention as ca
+from odam_torch.ops import kernels
 from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import detr as j_detr
 from torch_threads import one_torch_thread  # noqa: F401
@@ -80,11 +80,11 @@ def test_bf16_detr_matches(backbone):
     models = {dt: t_detr.build_detr(t_detr.DETRConfig(**kw, dtype=dt),
                                     flax_params=_numpy_tree(params), device="cpu")
               for dt in (torch.float32, torch.bfloat16)}
-    ca.reset_counts()
+    kernels.zero_counts()
     with torch.no_grad():
         t16 = models[torch.bfloat16](torch.from_numpy(img), torch.from_numpy(mask))
         t32 = models[torch.float32](torch.from_numpy(img), torch.from_numpy(mask))
-    assert ca.PLAIN_CALLS_BY_DTYPE["fused_attention"]["bfloat16"] > 0
+    assert kernels.counts("PLAIN_CALLS_BY_DTYPE")["fused_attention"]["bfloat16"] > 0
     assert t16["pred_logits"].dtype == torch.bfloat16
     for name in HEADS:
         _within_bar(name, t16[name], j16[name], j32[name])

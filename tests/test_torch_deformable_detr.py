@@ -27,7 +27,7 @@ from odam_torch import config as t_config
 from odam_torch.models import associator as t_assoc
 from odam_torch.models import deformable_detr as t_dd
 from odam_torch.models import detr as t_detr
-from odam_torch.ops import msda
+from odam_torch.ops import kernels, msda
 from odam_torch.runtime import processor as t_proc
 from odam_torch.runtime import scene_parallel as t_sp
 from odam_torch.runtime import tracker as t_trk
@@ -108,14 +108,15 @@ def test_msda_matches_a_literal_loop(levels, use_kernels):
     padded = torch.zeros(value.shape[:2], dtype=torch.bool)
     padded[:, starts[-1]:starts[-1] + shapes[-1][1]] = True             # a row of the last level
     value = value.masked_fill(padded[:, :, None, None], 0.0)
-    before = dict(msda.COUNTS, LAUNCHES_BY_DTYPE=None)
+    before = {key: kernels.counts(key)["ms_deform_attn"]
+              for key in ("LAUNCHES", "PLAIN_CALLS", "SAMPLES")}
     got = msda.ms_deform_attn(value, shapes, starts, loc, weights, use_kernels)
     want = _literal(value, shapes, starts, loc, weights, padded)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    assert msda.COUNTS["PLAIN_CALLS"] == before["PLAIN_CALLS"] + 1
-    assert msda.COUNTS["LAUNCHES"] == before["LAUNCHES"]
-    assert msda.COUNTS["SAMPLES"] == before["SAMPLES"] + weights.numel()
+    assert kernels.counts("PLAIN_CALLS")["ms_deform_attn"] == before["PLAIN_CALLS"] + 1
+    assert kernels.counts("LAUNCHES")["ms_deform_attn"] == before["LAUNCHES"]
+    assert kernels.counts("SAMPLES")["ms_deform_attn"] == before["SAMPLES"] + weights.numel()
 
 
 def test_msda_bf16_value_rounds_once_and_refuses_what_it_cannot_take():
@@ -328,13 +329,13 @@ def test_run_processor_runs_the_deformable_yaml(tmp_path, monkeypatch, capsys):
         t_proc.PipelineConfig, optim_iters=5, optim_samples=64))
     split = tmp_path / "split.txt"
     split.write_text("scene9700_00\n")
-    calls = msda.COUNTS["PLAIN_CALLS"]
+    calls = kernels.counts("PLAIN_CALLS")["ms_deform_attn"]
     assert t_run.main(["--config_path", YAML, "--scans_root", os.path.join(HARD, "scans"),
                        "--sequences", str(split), "--short_side", "128", "--max_size", "128",
                        "--max_frames", "2", "--max_objs", "8", "--max_views", "8",
                        "--min_views", "2", "--dtype", "float32", "--device", "cpu",
                        "--out_dir", str(tmp_path / "out")]) == 0
-    assert msda.COUNTS["PLAIN_CALLS"] - calls == 2 * 12
+    assert kernels.counts("PLAIN_CALLS")["ms_deform_attn"] - calls == 2 * 12
     with open(tmp_path / "out" / "scene9700_00" / "scene9700_00", "rb") as f:
         out = pickle.load(f)
     assert set(out) == {"tracks", "bboxes_qc", "bboxes_dl", "quadrics"}
@@ -347,8 +348,8 @@ def test_a_lane_step_traces_twelve_msda_spans_inside_the_detector():
     """Profiled, one lane step of a 6 + 6-layer tiny Deformable DETR on 2
     lanes: ``odam.msda`` 12 times (6 encoder, 6 decoder), inside
     ``odam.detr.encoder`` and ``odam.detr.decoder``, both inside
-    ``odam.detr``; on the CPU ``msda.PLAIN_CALLS`` equals the span count and
-    ``msda.SAMPLES`` is 2 x (tokens x 4 heads x 4 levels x 4 points x 6 +
+    ``odam.detr``; on the CPU MSDA's plain calls equal the span count and
+    its ``SAMPLES`` are 2 x (tokens x 4 heads x 4 levels x 4 points x 6 +
     8 queries x 4 x 4 x 4 x 6)."""
     model = _tiny(enc_layers=6, dec_layers=6)
     assoc = t_assoc.build_associator(t_assoc.AssociatorConfig(
@@ -376,9 +377,10 @@ def test_a_lane_step_traces_twelve_msda_spans_inside_the_detector():
     msda_parents = {names.get(r["parent"]) for r in block["last"] if r["name"] == "odam.msda"}
     assert msda_parents == {"odam.detr.encoder", "odam.detr.decoder"}
     counters = block["counters"]
-    assert counters["msda.PLAIN_CALLS"] == 12 and counters["msda.LAUNCHES"] == 0
+    assert counters["msda.PLAIN_CALLS.ms_deform_attn"] == 12
+    assert counters["msda.LAUNCHES.ms_deform_attn"] == 0
     tokens = 8 * 8 + 4 * 4 + 2 * 2 + 1
-    assert counters["msda.SAMPLES"] == 2 * (tokens + 8) * 4 * 4 * 4 * 6
+    assert counters["msda.SAMPLES.ms_deform_attn"] == 2 * (tokens + 8) * 4 * 4 * 4 * 6
     metrics.reset()
 
 
@@ -408,14 +410,14 @@ def test_msda_kernel_matches_the_plain_route_on_the_card(card, dtype, queries):
     from chip_smoke import msda_bar, msda_inputs
 
     value, shapes, starts, loc, w = msda_inputs(2, queries, dtype, card, levels=CELL_LEVELS)
-    launches = msda.COUNTS["LAUNCHES"]
+    launches = kernels.counts("LAUNCHES")["ms_deform_attn"]
     with torch.no_grad():
         got = msda.ms_deform_attn(value, shapes, starts, loc, w).float()
         want = msda.ms_deform_attn(value, shapes, starts, loc, w, use_kernels=False).float()
         rounded = msda.ms_deform_attn(value, shapes, starts, loc.to(torch.bfloat16).float(), w,
                                       use_kernels=False).float()
     torch.cuda.synchronize()
-    assert msda.COUNTS["LAUNCHES"] == launches + 1
+    assert kernels.counts("LAUNCHES")["ms_deform_attn"] == launches + 1
     bound, _ = msda_bar(want, dtype)
     assert bool(((got - want).abs() <= bound).all())
     assert not bool(((rounded - want).abs() <= bound).all())
@@ -441,9 +443,9 @@ def test_on_the_card_every_msda_span_launches_the_kernel(card):
         torch.cuda.synchronize()
     block = metrics.snapshot()["profiled"]
     assert block["spans"]["odam.msda"]["count"] == 12
-    assert block["counters"]["msda.LAUNCHES"] == 12
-    assert block["counters"]["msda.LAUNCHES_BY_DTYPE.bfloat16"] == 12
-    assert block["counters"]["msda.PLAIN_CALLS"] == 0
+    assert block["counters"]["msda.LAUNCHES.ms_deform_attn"] == 12
+    assert block["counters"]["msda.LAUNCHES_BY_DTYPE.ms_deform_attn.bfloat16"] == 12
+    assert block["counters"]["msda.PLAIN_CALLS.ms_deform_attn"] == 0
     with torch.no_grad():
         want = plain(x, lanes=2)
     for k in ("pred_logits", "pred_boxes", "pred_obj_features"):

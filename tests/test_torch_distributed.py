@@ -33,7 +33,7 @@ from odam_torch.models import criterion as t_crit
 from odam_torch.models import detr as t_detr
 from odam_torch.models import training as t_train
 from odam_torch.ops import attention as t_attn
-from odam_torch.ops import cuda_attention as t_ca
+from odam_torch.ops import kernels
 from odam_torch.parallel import distributed as t_dist
 from odam_torch.parallel import mesh as t_mesh
 from odam_torch.scripts import dryrun_distributed as dry
@@ -358,7 +358,7 @@ def test_ranks_ran_their_own_lanes_and_one_shard(job):
     for r, (_, report) in enumerate(job["ranks"]):
         assert report["lanes"]["lanes_this_rank"] == 2, r
         assert report["lanes"]["plain_calls"]["fused_attention"] > 0, r
-        assert report["detect"]["plain_calls"] == {"fused_attention": 0, "flash_attention": 0}
+        assert report["detect"]["plain_calls"] == {name: 0 for name in kernels.KERNELS}
         assert len(report["detr_train"]["allreduce_ms"]) == 5
     assert job["reference"][1]["lanes"]["lanes_this_rank"] == 4
 
@@ -432,13 +432,13 @@ def test_launcher_env_form_raises_instead_of_running_alone(monkeypatch):
 def test_mha_core_routes_a_shard_on_the_global_batch(B, shards, kernel):
     """A rank's block of B rows of a batch over ``shards`` ranks routes as
     the global B x shards does in JAX: global 4 over 2 shards takes the
-    plain path, counted by cuda_attention.PLAIN_CALLS."""
+    plain path, counted as a plain call of the fused kernel."""
     rng = np.random.default_rng(B + 10 * shards)
     q, k = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
             for s in ((B, 5, 32), (B, 40, 32)))
-    t_ca.reset_counts()
+    kernels.zero_counts()
     out = t_attn.mha_core(q, k, k, 4, shards=shards)
-    assert t_ca.PLAIN_CALLS["fused_attention"] == int(kernel)
+    assert kernels.counts("PLAIN_CALLS")["fused_attention"] == int(kernel)
     ref = t_attn.mha_core(q, k, k, 4, use_kernels=False)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
 

@@ -24,7 +24,7 @@ from odam_torch.models import associator as t_assoc
 from odam_torch.models import convert
 from odam_torch.models import detr as t_detr
 from odam_torch.ops import attention as t_attn
-from odam_torch.ops import cuda_attention as t_ca
+from odam_torch.ops import kernels
 from odam_torch.ops import lap as t_lap
 from odam_torch.runtime import processor as t_proc
 from odam_torch.runtime import scene_parallel as t_sp
@@ -171,9 +171,10 @@ def test_mha_core_routes_on_the_lane_batch(B, lanes, kernel):
                    for s in ((B, 7, 32), (B, Lk, 32), (B, Lk, 32)))
         kpm = torch.zeros(B, Lk, dtype=torch.bool)
         kpm[:, -3:] = True
-        t_ca.reset_counts()
+        kernels.zero_counts()
         out = t_attn.mha_core(q, k, v, 4, kpm, lanes=lanes)
-        assert t_ca.PLAIN_CALLS[name] == int(kernel), (Lk, dict(t_ca.PLAIN_CALLS))
+        plain = kernels.counts("PLAIN_CALLS")
+        assert plain[name] == int(kernel), (Lk, plain)
         ref = t_attn.mha_core(q, k, v, 4, kpm, use_kernels=False)
         np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
     with pytest.raises(ValueError, match="does not divide"):
@@ -252,9 +253,9 @@ def test_runner_equals_serial_pipeline_on_rehearsal_scenes():
                                 optim_samples=100, max_log_frames=8)
     scenes = [_hard_scene(s, n) for s, n in zip(HARD_SCENES, (4, 2, 3))]
     runner = t_sp.SceneParallelRunner(detr, assoc, cfg, 4, device="cpu")
-    lap_calls = t_lap.PLAIN_CALLS["lap_solve"]
+    lap_calls = kernels.counts("PLAIN_CALLS")["lap_solve"]
     stores, logs = runner.run_frames(scenes, 192.0, 192.0)
-    lap_calls = t_lap.PLAIN_CALLS["lap_solve"] - lap_calls
+    lap_calls = kernels.counts("PLAIN_CALLS")["lap_solve"] - lap_calls
     outs = runner.finalize(scenes, stores, logs, 192.0, 192.0)
     pipe = t_proc.OdamPipeline(detr, assoc, cfg, device="cpu")
     for lane, s in enumerate(scenes):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from odam_torch.models import associator as t_assoc
+from odam_torch.ops import kernels
 from odam_torch.ops import sinkhorn as t_sink
 from odam_torch.utils import metrics
 from torch_threads import one_torch_thread  # noqa: F401
@@ -216,17 +217,21 @@ def test_the_edge_cases_give_the_non_finite_entries_they_should(references):
 
 def test_a_cpu_call_counts_one_plain_call_and_no_launch():
     scores, rm, cm = _lane(np.random.default_rng(0))
-    t_sink.reset_counts()
+    kernels.zero_counts()
     with torch.no_grad():
         t_sink.log_optimal_transport(torch.from_numpy(scores), torch.tensor(ALPHA), iters=3,
                                      row_mask=torch.from_numpy(rm),
                                      col_mask=torch.from_numpy(cm))
-    assert t_sink.LAUNCHES == {"sinkhorn": 0} and t_sink.PLAIN_CALLS == {"sinkhorn": 1}
+    assert kernels.counts("LAUNCHES")["sinkhorn"] == 0
+    assert kernels.counts("PLAIN_CALLS")["sinkhorn"] == 1
     counters = metrics.snapshot()["counters"]
-    assert counters["sinkhorn"] == {"LAUNCHES": {"sinkhorn": 0}, "PLAIN_CALLS": {"sinkhorn": 1}}
-    assert counters["build"]["sinkhorn"] == t_sink.BUILD_INFO
-    t_sink.reset_counts()
-    assert t_sink.PLAIN_CALLS == {"sinkhorn": 0}
+    assert counters["sinkhorn"] == {
+        "LAUNCHES": {"sinkhorn": 0}, "PLAIN_CALLS": {"sinkhorn": 1},
+        "LAUNCHES_BY_DTYPE": {"sinkhorn": {"float32": 0}},
+        "PLAIN_CALLS_BY_DTYPE": {"sinkhorn": {"float32": 1}}}
+    assert counters["build"]["sinkhorn"] == kernels.SINKHORN.info
+    kernels.zero_counts()
+    assert kernels.counts("PLAIN_CALLS")["sinkhorn"] == 0
 
 
 def test_a_call_that_needs_a_gradient_backpropagates_as_the_plain_version():
@@ -238,12 +243,12 @@ def test_a_call_that_needs_a_gradient_backpropagates_as_the_plain_version():
     for fn in (t_sink.log_optimal_transport, t_sink.log_optimal_transport_plain):
         s = torch.from_numpy(scores).requires_grad_()
         a = torch.tensor(ALPHA, requires_grad=True)
-        t_sink.reset_counts()
+        kernels.zero_counts()
         Z = fn(s, a, iters=20, row_mask=torch.from_numpy(rm), col_mask=torch.from_numpy(cm))
         (Z[:, :-1, :-1].exp() * torch.arange(30.0)).sum().backward()
-        grads.append((Z.detach(), s.grad, a.grad, dict(t_sink.PLAIN_CALLS)))
+        grads.append((Z.detach(), s.grad, a.grad, kernels.counts("PLAIN_CALLS")["sinkhorn"]))
     (Z, gs, ga, calls), (Z_ref, gs_ref, ga_ref, _) = grads
-    assert calls == {"sinkhorn": 1} and t_sink.LAUNCHES == {"sinkhorn": 0}
+    assert calls == 1 and kernels.counts("LAUNCHES")["sinkhorn"] == 0
     assert torch.equal(Z, Z_ref) and torch.equal(gs, gs_ref) and torch.equal(ga, ga_ref)
     assert bool(gs.abs().sum() > 0) and bool(ga != 0)
 
@@ -268,11 +273,11 @@ def test_the_associator_takes_the_plain_version_itself_without_kernels(monkeypat
     real = t_sink.log_optimal_transport
     monkeypatch.setattr(t_sink, "log_optimal_transport",
                         lambda *a, **k: routed.append(1) or real(*a, **k))
-    t_sink.reset_counts()
+    kernels.zero_counts()
     with torch.no_grad():
         Z, scores = model.assignment(tracks, tm, dets, dm)
-    assert len(routed) == t_sink.PLAIN_CALLS["sinkhorn"] == int(use_kernels)
-    assert t_sink.LAUNCHES == {"sinkhorn": 0}
+    assert len(routed) == kernels.counts("PLAIN_CALLS")["sinkhorn"] == int(use_kernels)
+    assert kernels.counts("LAUNCHES")["sinkhorn"] == 0
     want = t_sink.log_optimal_transport_plain(scores, model.bin_score.detach(), 20, tm, dm)
     assert torch.equal(Z, want)
 
@@ -294,12 +299,12 @@ def test_kernel_matches_the_plain_version_on_the_card(card, iters):
     for n, (name, make) in enumerate(CASES.items()):
         scores, rm, cm = (torch.from_numpy(a).to(card) for a in make(np.random.default_rng(n)))
         alpha = torch.tensor(ALPHA, device=card)
-        launches = t_sink.LAUNCHES["sinkhorn"]
+        launches = kernels.counts("LAUNCHES")["sinkhorn"]
         with torch.no_grad():
             got = t_sink.log_optimal_transport(scores, alpha, iters, rm, cm)
             want = t_sink.log_optimal_transport_plain(scores, alpha, iters, rm, cm)
         torch.cuda.synchronize()
-        assert t_sink.LAUNCHES["sinkhorn"] == launches + 1, name
+        assert kernels.counts("LAUNCHES")["sinkhorn"] == launches + 1, name
         assert_same_transport(got.cpu().numpy(), want.cpu().numpy())
 
 
@@ -327,7 +332,7 @@ def test_kernel_replayed_from_a_cuda_graph_equals_its_eager_launch(card):
 def test_the_kernel_refuses_a_gradient_and_what_a_block_cannot_hold(card):
     scores, rm, cm = (torch.from_numpy(a).to(card) for a in _lane(np.random.default_rng(6)))
     alpha = torch.tensor(ALPHA, device=card, requires_grad=True)
-    launches = t_sink.LAUNCHES["sinkhorn"]
+    launches = kernels.counts("LAUNCHES")["sinkhorn"]
     with pytest.raises(RuntimeError, match="no backward"):
         t_sink.log_optimal_transport(scores, alpha, 3, rm, cm)
     with torch.no_grad():
@@ -335,4 +340,4 @@ def test_the_kernel_refuses_a_gradient_and_what_a_block_cannot_hold(card):
         with pytest.raises(ValueError, match=r"the Z \[2001, 129\] of a \[2000, 128\] "
                                              r"problem.*do not fit one block's shared memory"):
             t_sink.log_optimal_transport(torch.zeros(1, 2000, 128, device=card), alpha, 3)
-    assert t_sink.LAUNCHES["sinkhorn"] == launches + 1
+    assert kernels.counts("LAUNCHES")["sinkhorn"] == launches + 1

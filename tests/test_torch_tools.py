@@ -28,7 +28,7 @@ import torch
 
 from odam_torch.models import convert
 from odam_torch.models import resnet as t_resnet
-from odam_torch.ops import cuda_attention
+from odam_torch.ops import cuda_attention, kernels
 from odam_torch.scripts import bench_batched_detection as t_bbd
 from odam_torch.scripts import lm_envelope_sweep as t_sweep
 from odam_tpu.models import detr as j_detr
@@ -88,9 +88,9 @@ def test_long_key_attention_matches_pallas(kernel, Lk, H, dh):
     extra = {"block_k": 256} if kernel == "flash_attention" else {}
     want = getattr(pallas_attention, kernel)(*map(jnp.asarray, (q, k, v, kpm)),
                                              interpret=True, **extra)
-    before = cuda_attention.PLAIN_CALLS[kernel]
+    before = kernels.counts("PLAIN_CALLS")[kernel]
     got = getattr(cuda_attention, kernel)(*map(torch.from_numpy, (q, k, v, kpm)))
-    assert cuda_attention.PLAIN_CALLS[kernel] == before + 1
+    assert kernels.counts("PLAIN_CALLS")[kernel] == before + 1
     atol = FUSED_ATOL if kernel == "fused_attention" else FLASH_ATOL
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
 

@@ -7,14 +7,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from odam_torch import native
 from odam_torch.mapping import lm_solver, optimizer
 from odam_torch.models import associator as t_assoc
 from odam_torch.models import detr as t_detr
-from odam_torch.ops import cuda_attention as t_ca
+from odam_torch.ops import kernels
 from odam_torch.ops import lap as t_lap
-from odam_torch.ops import msda as t_msda
-from odam_torch.ops import sinkhorn as t_sink
 from odam_torch.runtime import processor as t_proc
 from odam_torch.runtime import scene_parallel as t_sp
 from odam_torch.runtime import tracker as t_trk
@@ -195,32 +192,28 @@ def test_a_scene_end_shares_one_sequence_id_and_counts_its_adam_iterations():
 
 def test_snapshot_exports_the_registered_counters_and_reset_clears_them(lanes):
     """The attention, LAP, LM, MSDA, optim, Sinkhorn and build groups hold the
-    modules' own dicts' values; reset() zeroes every count and forgets every span, and
-    leaves the build records."""
+    values of the dicts their modules count in (the kernels' of the seam);
+    reset() zeroes every count and forgets every span, and leaves the build
+    records."""
     metrics.enable()
     _step(lanes)
     t_lap.solve(torch.rand(2, 3, 4))
     lm_solver.HOST_READS["fallback_any"] += 2
     optimizer.COUNTS["adam_iterations"] += 5
     counters = metrics.snapshot()["counters"]
-    assert counters["attention"] == {
-        "LAUNCHES": t_ca.LAUNCHES, "PLAIN_CALLS": t_ca.PLAIN_CALLS,
-        "LAUNCHES_BY_DTYPE": t_ca.LAUNCHES_BY_DTYPE,
-        "PLAIN_CALLS_BY_DTYPE": t_ca.PLAIN_CALLS_BY_DTYPE,
-        "LAUNCHES_BY_BATCH": t_ca.LAUNCHES_BY_BATCH, "ALIGN_COPIES": t_ca.ALIGN_COPIES}
+    for group in ("attention", "lap", "msda", "sinkhorn"):
+        assert counters[group] == kernels.GROUPS[group], group
+    assert set(counters["attention"]) == {"LAUNCHES", "PLAIN_CALLS", "LAUNCHES_BY_DTYPE",
+                                          "PLAIN_CALLS_BY_DTYPE", "LAUNCHES_BY_BATCH",
+                                          "ALIGN_COPIES"}
     assert counters["attention"]["PLAIN_CALLS"]["fused_attention"] > 0
-    assert counters["lap"] == {"LAUNCHES": t_lap.LAUNCHES, "PLAIN_CALLS": t_lap.PLAIN_CALLS,
-                               "ROUTE_LAUNCHES": t_lap.ROUTE_LAUNCHES}
     assert counters["lap"]["PLAIN_CALLS"]["lap_solve"] >= 1
     assert counters["lm"] == {"HOST_READS": lm_solver.HOST_READS}
     assert counters["optim"] == optimizer.COUNTS
-    assert counters["msda"] == t_msda.COUNTS
-    assert counters["sinkhorn"] == {"LAUNCHES": t_sink.LAUNCHES,
-                                    "PLAIN_CALLS": t_sink.PLAIN_CALLS}
     assert counters["sinkhorn"]["PLAIN_CALLS"]["sinkhorn"] == 1      # one a lane step
-    assert counters["build"] == {"attention": t_ca.BUILD_INFO, "lap": t_lap.BUILD_INFO,
-                                 "msda": t_msda.BUILD_INFO, "native": native.BUILD_INFO,
-                                 "sinkhorn": t_sink.BUILD_INFO}
+    assert counters["build"] == {"attention": kernels.ATTENTION.info, "lap": kernels.LAP.info,
+                                 "msda": kernels.MSDA.info, "native": kernels.NATIVE.info,
+                                 "sinkhorn": kernels.SINKHORN.info}
     assert metrics.snapshot()["enabled"]["counters"]["optim.adam_iterations"] == 0
 
     build = {k: dict(v) for k, v in counters["build"].items()}
@@ -230,5 +223,6 @@ def test_snapshot_exports_the_registered_counters_and_reset_clears_them(lanes):
     assert snap["profiled"] is None
     for group in ("attention", "lap", "lm", "msda", "optim", "sinkhorn"):
         assert not any(metrics._flat("", snap["counters"][group], {}).values()), group
-    assert t_ca.PLAIN_CALLS["fused_attention"] == t_lap.PLAIN_CALLS["lap_solve"] == 0
+    plain = kernels.counts("PLAIN_CALLS")
+    assert plain["fused_attention"] == plain["lap_solve"] == 0
     assert snap["counters"]["build"] == build

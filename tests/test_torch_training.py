@@ -22,7 +22,7 @@ from odam_torch.models import matcher as t_match
 from odam_torch.models import training as t_train
 from odam_torch.ops import attention as t_attn
 from odam_torch.ops import cuda_attention as ca
-from odam_torch.ops import lap as t_lap
+from odam_torch.ops import kernels
 from odam_torch.utils import boxes as t_boxes
 from odam_tpu.models import associator as j_assoc
 from odam_tpu.models import criterion as j_crit
@@ -134,9 +134,9 @@ def test_hungarian_match_exact(criterion_case):
     out, _, _, tt, jm = criterion_case
     sets = [out] + out["aux_outputs"]
     matcher = t_match.HungarianMatcher()
-    before = t_lap.PLAIN_CALLS["lap_solve"]
+    before = kernels.counts("PLAIN_CALLS")["lap_solve"]
     got = matcher([_to(s, torch.from_numpy) for s in sets], tt.classes, tt.boxes, tt.mask)
-    assert t_lap.PLAIN_CALLS["lap_solve"] - before == 1
+    assert kernels.counts("PLAIN_CALLS")["lap_solve"] - before == 1
     for s, g, want in zip(sets, got, jm):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), want)
@@ -241,14 +241,14 @@ def test_wrappers_refuse_to_cut_the_gradient():
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 8, 2, 16, generator=g, requires_grad=True)
     k = torch.randn(1, 8, 2, 16, generator=g)
-    ca.reset_counts()
+    kernels.zero_counts()
     for fn in (ca.fused_attention, ca.flash_attention):
         with pytest.raises(RuntimeError, match="no backward"):
             fn(q, k, k)
-    assert ca.PLAIN_CALLS == {"fused_attention": 0, "flash_attention": 0}
+    assert kernels.counts("PLAIN_CALLS") == {name: 0 for name in kernels.KERNELS}
     with torch.no_grad():
         ca.fused_attention(q, k, k)
-    assert ca.PLAIN_CALLS["fused_attention"] == 1
+    assert kernels.counts("PLAIN_CALLS")["fused_attention"] == 1
     with pytest.raises(RuntimeError, match="no backward"):
         t_attn.mha_core(q.reshape(1, 8, 32), k.reshape(1, 8, 32), k.reshape(1, 8, 32), 2)
     out = t_attn.mha_core(q.reshape(1, 8, 32), k.reshape(1, 8, 32), k.reshape(1, 8, 32), 2,
@@ -505,7 +505,7 @@ def assoc_run():
     state = t_train.init_train_state(model, opt)
     tstep = t_train.make_assoc_train_step()
     log = []
-    lap_calls = t_lap.PLAIN_CALLS["lap_solve"]
+    lap_calls = kernels.counts("PLAIN_CALLS")["lap_solve"]
     for _ in range(STEPS):
         jstate, jloss, jgrads = jstep(jstate, *map(jnp.asarray, batch))
         loss = tstep(state, *map(torch.from_numpy, batch))
@@ -513,7 +513,7 @@ def assoc_run():
             k: p.grad for k, p in model.named_parameters()})))
         log.append((float(jloss), jax.tree.map(np.asarray, jgrads), float(loss), grads))
     return dict(model=model, params0=params, jparams=jax.tree.map(np.asarray, jstate.params),
-                log=log, lap_calls=t_lap.PLAIN_CALLS["lap_solve"] - lap_calls)
+                log=log, lap_calls=kernels.counts("PLAIN_CALLS")["lap_solve"] - lap_calls)
 
 
 def test_assoc_step_matches_jax(assoc_run):
